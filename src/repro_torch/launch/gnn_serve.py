@@ -1,0 +1,196 @@
+"""The serving CLI: partition, layer-wise-infer, then serve traffic.
+
+Twin of repro/launch/gnn_serve.py. Partition a graph (edge OR vertex
+partitioner — the embedding store shards by masters resp. owners), run the
+layer-wise inference engine to materialise the per-layer embedding stores,
+then drive a Poisson request trace through the micro-batched online path
+and report per-worker p50/p99 latency and sustainable QPS, modeled on the
+paper's cluster, beside the measured host compute per batch.
+
+Runs on the card unless `--device cpu` is given; with `--device cuda` and
+no GPU it raises. Features, request ids and arrivals are drawn from
+`np.random.default_rng(seed)` in the reference's order, so both CLIs serve
+the same requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.gnn_serve --graph OR \
+      --scale 0.05 --partitioner hep100 --k 4 --model sage --qps 100 --smoke
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.cost_model import PAPER_CLUSTER
+from repro_torch.core.device import DEVICES, resolve_device
+from repro_torch.core.edge_partition import EDGE_PARTITIONERS, partition_edges
+from repro_torch.core.graph import Graph, paper_graph
+from repro_torch.core.metrics import edge_partition_metrics, vertex_partition_metrics
+from repro_torch.core.partition_book import build_vertex_book
+from repro_torch.core.vertex_partition import VERTEX_PARTITIONERS, partition_vertices
+from repro_torch.gnn.feature_store import CACHE_POLICIES
+from repro_torch.gnn.inference import LayerwiseInference, edge_assignment_from_vertex
+from repro_torch.gnn.models import GNNSpec, init_params
+from repro_torch.serve.engine import ServingReport, build_serving, run_serving_sim
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.gnn_serve",
+        description="Partition a graph, run layer-wise GNN inference into "
+                    "embedding stores, then serve a simulated request trace.")
+    ap.add_argument("--device", default="cuda", choices=list(DEVICES),
+                    help="where the model runs; cuda raises if no GPU is "
+                         "visible")
+    ap.add_argument("--graph", default="OR", choices=["HO", "DI", "EN", "EU", "OR"])
+    ap.add_argument("--scale", type=float, default=0.05)
+    ap.add_argument("--partitioner", default="hep100",
+                    help="edge partitioner (store shards by masters) or "
+                         "vertex partitioner (store shards by owners)")
+    ap.add_argument("--k", type=int, default=4)
+    ap.add_argument("--model", default="sage", choices=["sage", "gcn", "gat"])
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--features", type=int, default=64)
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--classes", type=int, default=16)
+    ap.add_argument("--agg-backend", default="scatter",
+                    choices=["scatter", "tiled", "pallas"],
+                    help="scatter: index_add_/scatter_reduce_; tiled: the "
+                         "CUDA segment-reduce kernel on the card (its plain "
+                         "version on the CPU); pallas: always the kernel")
+    ap.add_argument("--qps", type=float, default=100.0,
+                    help="offered load (Poisson arrivals, whole cluster)")
+    ap.add_argument("--requests", type=int, default=1000,
+                    help="length of the simulated request trace")
+    ap.add_argument("--hops", type=int, default=1,
+                    help="final layers recomputed per request (1..layers-1); "
+                         "the rest is read from the embedding store")
+    ap.add_argument("--fanout", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=32,
+                    help="micro-batch size cap")
+    ap.add_argument("--max-wait", type=float, default=5e-4,
+                    help="seconds a request may wait for its micro-batch")
+    ap.add_argument("--codec", default="fp32", choices=["fp32"],
+                    help="wire codec of the embedding store (fp32 only)")
+    ap.add_argument("--cache-policy", default="none",
+                    choices=list(CACHE_POLICIES))
+    ap.add_argument("--cache-budget", type=int, default=0,
+                    help="cached remote embedding rows per worker")
+    ap.add_argument("--smoke", action="store_true",
+                    help="CI-fast: trim the request trace")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What one `run` produced, for callers that check it."""
+
+    graph: Graph
+    spec: GNNSpec
+    embeddings: list             # per-layer [V, d_l], input side first
+    inference: LayerwiseInference
+    report: ServingReport
+
+
+def run(argv: Optional[list] = None) -> ServeRun:
+    """Parse `argv` (default: sys.argv[1:]) and serve; prints a report."""
+    args = parser().parse_args(argv)
+    if args.smoke:
+        args.requests = min(args.requests, 200)
+    device = resolve_device(args.device)
+
+    g = paper_graph(args.graph, scale=args.scale, seed=0)
+    print(f"[serve] graph {args.graph}: {g.num_vertices} vertices, "
+          f"{g.num_edges} edges")
+    spec = GNNSpec(model=args.model, feature_dim=args.features,
+                   hidden_dim=args.hidden, num_classes=args.classes,
+                   num_layers=args.layers, agg_backend=args.agg_backend)
+    rng = np.random.default_rng(args.seed)
+    feats = rng.normal(size=(g.num_vertices, args.features)).astype(np.float32)
+    params = init_params(spec, seed=args.seed, device=device)
+
+    # ---------------------------------------------------------- partition
+    t0 = time.perf_counter()
+    if args.partitioner in EDGE_PARTITIONERS:
+        edge_assignment = partition_edges(g, args.k, args.partitioner,
+                                          seed=args.seed)
+        pt = time.perf_counter() - t0
+        m = edge_partition_metrics(g, edge_assignment, args.k)
+        print(f"[serve] edge-partitioned in {pt:.2f}s: "
+              f"rf={m.replication_factor:.2f} edge_bal={m.edge_balance:.2f}")
+        owner = None  # derived from masters below
+    elif args.partitioner in VERTEX_PARTITIONERS:
+        owner = partition_vertices(g, args.k, args.partitioner, seed=args.seed)
+        pt = time.perf_counter() - t0
+        m = vertex_partition_metrics(g, owner, args.k)
+        print(f"[serve] vertex-partitioned in {pt:.2f}s: "
+              f"edge_cut={m.edge_cut:.3f} vertex_bal={m.vertex_balance:.2f}")
+        edge_assignment = edge_assignment_from_vertex(g, owner)
+    else:
+        raise ValueError(
+            f"unknown partitioner {args.partitioner!r}; edge options "
+            f"{sorted(EDGE_PARTITIONERS)}, vertex options "
+            f"{sorted(VERTEX_PARTITIONERS)}")
+
+    # ------------------------------------------- layer-wise embedding pass
+    engine = LayerwiseInference.build(
+        g, edge_assignment, args.k, spec, params, feats, device=device)
+    embeddings = engine.run()
+    if owner is None:
+        owner = engine.book.master_assignment()
+    vbook = build_vertex_book(g, owner, args.k)
+    dims = "/".join(str(e.shape[1]) for e in embeddings)
+    layer_ms = ", ".join(f"{t * 1e3:.1f}" for t in engine.layer_times)
+    print(f"[serve] layer-wise inference on {device}: {len(embeddings)} "
+          f"layers (dims {dims}) in {sum(engine.layer_times):.3f}s "
+          f"(per layer ms: {layer_ms}), "
+          f"halo traffic {engine.sync_bytes()/2**20:.1f} MiB/pass")
+
+    # ------------------------------------------------------- online serving
+    engines, batchers, store = build_serving(
+        g, vbook, spec, params, embeddings, device=device,
+        hops=args.hops, fanout=args.fanout, max_batch=args.batch,
+        max_wait=args.max_wait, cache_policy=args.cache_policy,
+        cache_budget=args.cache_budget, seed=args.seed,
+    )
+    if args.cache_budget:
+        print(f"[serve] embedding cache: policy={args.cache_policy} "
+              f"budget={args.cache_budget}/worker "
+              f"(filled {store.cache_sizes.tolist()})")
+    request_ids = rng.integers(0, g.num_vertices, args.requests)
+    arrivals = np.sort(rng.uniform(0.0, args.requests / args.qps,
+                                   args.requests))
+    report = run_serving_sim(engines, batchers, owner, request_ids, arrivals)
+
+    for row in report.worker_rows():
+        print(f"[serve] worker {row['worker']}: served {row['served']:5d}  "
+              f"modeled p50 {row['p50']*1e3:7.2f} ms  "
+              f"p99 {row['p99']*1e3:7.2f} ms  "
+              f"sustainable {row['qps_sustainable']:8.0f} qps")
+    print(f"[serve] cluster (modeled on {PAPER_CLUSTER.name}): offered "
+          f"{args.qps:.0f} qps, served {report.served()} requests in "
+          f"{report.duration:.2f}s  p50 {report.p50()*1e3:.2f} ms  "
+          f"p99 {report.p99()*1e3:.2f} ms  "
+          f"sustainable {report.sustainable_qps():.0f} qps/cluster")
+    print(f"[serve] store traffic: hit_rate {report.fetch.hit_rate:.2f}  "
+          f"miss {report.fetch.miss_bytes/2**20:.2f} MiB  "
+          f"wire {report.fetch.wire_bytes/2**20:.2f} MiB ({args.codec})  "
+          f"host compute p50 {np.percentile(report.host_time, 50)*1e3:.2f} "
+          f"ms/batch on {device}")
+    return ServeRun(graph=g, spec=spec, embeddings=embeddings,
+                    inference=engine, report=report)
+
+
+def main(argv: Optional[list] = None) -> None:
+    with torch.inference_mode():
+        run(argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,317 @@
+"""The serving engine: embedding store + final-layer recompute, simulated QPS.
+
+Twin of repro/serve/engine.py (without the fault plan). A request for
+vertex v's prediction is answered in three phases, priced on the paper's
+cluster by `core.cost_model.serve_request`:
+
+  1. sample    — a `hops`-deep MFG rooted at the micro-batch's targets
+                 (host, serve/batcher.py; static `LayerPad` shapes)
+  2. fetch     — the MFG's input frontier reads layer-(L-hops) embedding
+                 rows from the `RowStore`; only miss bytes cross the network
+  3. recompute — the last `hops` layers run over the MFG on the device
+                 (`minibatch.mfg_forward`, through `ops.aggregate`)
+
+`run_serving_sim` drives Poisson arrivals through per-worker queues; every
+worker serves its micro-batches serially at the cost model's service time.
+Latencies are modeled for the paper's cluster; the host compute time is
+measured on the device the engine runs on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import cost_model
+from repro_torch.core.cost_model import PAPER_CLUSTER, ClusterSpec
+from repro_torch.gnn.feature_store import FetchStats, RowStore
+from repro_torch.gnn.inference import build_embedding_stores
+from repro_torch.gnn.minibatch import mfg_forward
+from repro_torch.gnn.models import GNNSpec
+from repro_torch.gnn.sampling import SampledBatch, SamplePlan
+from repro_torch.serve.batcher import MicroBatch, MicroBatcher
+
+__all__ = ["ServeEngine", "ServingReport", "build_serving", "run_serving_sim"]
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Per-worker online engine: store reads + last-layers recompute."""
+
+    spec: GNNSpec
+    params: Any                   # full model params (suffix sliced per step)
+    store: RowStore               # layer-(L-hops) embedding rows
+    plan: SamplePlan
+    hops: int
+    worker: int
+    device: torch.device
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.hops <= self.spec.num_layers:
+            raise ValueError(
+                f"hops={self.hops} outside [1, {self.spec.num_layers}]")
+        expect = (self.spec.feature_dim if self.hops == self.spec.num_layers
+                  else self.spec.hidden_dim)
+        if self.store.row_dim != expect:
+            raise ValueError(
+                f"store row_dim {self.store.row_dim} != layer-"
+                f"{self.spec.num_layers - self.hops} width {expect}")
+
+    @property
+    def _layer_params(self) -> tuple:
+        return tuple(self.params["layers"][self.spec.num_layers - self.hops:])
+
+    @property
+    def _sizes(self) -> tuple:
+        return tuple(p.n_dst for p in self.plan.layers)
+
+    def device_batch(self, batch: SampledBatch, x: np.ndarray) -> dict:
+        """Stage one padded MFG + input rows onto the device. Pad edges'
+        `esrc` (== n_src) is clamped to the last source row, as JAX's
+        gather clamps; their messages are masked to zero."""
+        dev = self.device
+        layers = []
+        for pad, lay in zip(self.plan.layers, batch.layers):
+            d = {
+                "esrc": torch.as_tensor(
+                    np.minimum(lay.esrc, pad.n_src - 1), dtype=torch.int64,
+                    device=dev),
+                "edst": torch.as_tensor(lay.edst, dtype=torch.int64,
+                                        device=dev),
+                "emask": torch.as_tensor(lay.emask, device=dev),
+                "deg": torch.as_tensor(lay.sampled_deg, device=dev),
+            }
+            if lay.agg_order is not None:
+                d["agg_order"] = torch.as_tensor(lay.agg_order,
+                                                 dtype=torch.int64, device=dev)
+                d["agg_ldst"] = torch.as_tensor(lay.agg_ldst, device=dev)
+            layers.append(d)
+        return {"x": torch.as_tensor(x, device=dev), "layers": layers}
+
+    @torch.inference_mode()
+    def answer(
+        self, batch: SampledBatch
+    ) -> tuple[np.ndarray, FetchStats, float]:
+        """Serve one padded micro-batch MFG.
+
+        Returns (logits [plan.seeds, C] — rows past the true request count
+        are padding, mask with batch.seed_mask —, the embedding-store fetch
+        accounting, and the measured host compute seconds: the forward,
+        ended by a device synchronise)."""
+        ids = batch.input_ids[batch.input_mask]
+        rows, stats = self.store.gather(self.worker, ids)
+        x = np.zeros((batch.input_ids.shape[0], self.store.row_dim),
+                     dtype=np.float32)
+        x[batch.input_mask] = rows
+        dev = self.device_batch(batch, x)
+        t0 = time.perf_counter()
+        out = mfg_forward(self.spec, self._layer_params, dev, self._sizes)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        host_s = time.perf_counter() - t0
+        return out[: self.plan.seeds].cpu().numpy(), stats, host_s
+
+    def estimate(self, batch: SampledBatch,
+                 stats: FetchStats,
+                 cluster: ClusterSpec = PAPER_CLUSTER):
+        """Cluster-model service time of one answered micro-batch."""
+        return cost_model.serve_request(
+            stats.num_input, stats.num_remote, stats.num_remote_miss,
+            batch.num_edges, self.spec,
+            embed_dim=self.store.row_dim, hops=self.hops, cluster=cluster,
+        )
+
+
+# ---------------------------------------------------------------------------
+# QPS simulation
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServingReport:
+    """Outcome of one simulated serving run (all workers)."""
+
+    k: int
+    offered_qps: float
+    latency: np.ndarray        # [n] modeled per-request latency (seconds)
+    latency_worker: np.ndarray  # [n] worker that served each request
+    host_time: np.ndarray      # [b] measured host compute per batch
+    service_time: np.ndarray   # [b] modeled service time per batch
+    batch_size: np.ndarray     # [b]
+    batch_worker: np.ndarray   # [b]
+    fetch: FetchStats          # merged over every batch
+    duration: float            # arrival-window length (seconds)
+    queue_wait: Optional[np.ndarray] = None   # [n] dispatch - arrival
+    batch_miss: Optional[np.ndarray] = None   # [b]
+    # the answers, in the order of `latency`: the request's target vertex
+    # and its served logits
+    served_ids: Optional[np.ndarray] = None   # [n]
+    logits: Optional[np.ndarray] = None       # [n, C]
+
+    # -------------------------------------------------------------- metrics
+    def _lat(self, worker: Optional[int]) -> np.ndarray:
+        if worker is None:
+            return self.latency
+        return self.latency[self.latency_worker == worker]
+
+    def p50(self, worker: Optional[int] = None) -> float:
+        return float(np.percentile(self._lat(worker), 50))
+
+    def p99(self, worker: Optional[int] = None) -> float:
+        return float(np.percentile(self._lat(worker), 99))
+
+    def sustainable_qps(self, worker: Optional[int] = None) -> float:
+        """Throughput cap if the worker(s) were never idle: served requests
+        per second of busy (service) time; the cluster cap (worker=None) is
+        the sum of per-worker rates."""
+        if worker is None:
+            rates = [self.sustainable_qps(w) for w in range(self.k)]
+            finite = [r for r in rates if np.isfinite(r)]
+            return float(sum(finite)) if finite else float("inf")
+        sel = self.batch_worker == worker
+        busy = float(self.service_time[sel].sum())
+        served = float(self.batch_size[sel].sum())
+        return served / busy if busy > 0 else float("inf")
+
+    def served(self, worker: Optional[int] = None) -> int:
+        return int(self._lat(worker).shape[0])
+
+    def worker_rows(self) -> list:
+        return [
+            {
+                "worker": w,
+                "served": self.served(w),
+                "p50": self.p50(w) if self.served(w) else float("nan"),
+                "p99": self.p99(w) if self.served(w) else float("nan"),
+                "qps_sustainable": self.sustainable_qps(w),
+            }
+            for w in range(self.k)
+        ]
+
+
+def run_serving_sim(
+    engines: list,
+    batchers: list,
+    owner: np.ndarray,
+    request_ids: np.ndarray,
+    arrivals: np.ndarray,
+    *,
+    cluster: ClusterSpec = PAPER_CLUSTER,
+) -> ServingReport:
+    """Drive a request trace through per-worker queues.
+
+    `request_ids`/`arrivals` are the global trace (arrivals sorted,
+    seconds); each request is routed to the worker owning its target
+    vertex. Every worker batches greedily (`plan_dispatch`) and serves
+    serially at the cost model's service time; modeled per-request latency
+    = (dispatch wait) + (batch service time). Host compute is measured too
+    and reported separately."""
+    request_ids = np.asarray(request_ids, dtype=np.int64)
+    arrivals = np.asarray(arrivals, dtype=np.float64)
+    k = len(engines)
+    latencies, lat_worker, queue_waits, served_ids, logits = [], [], [], [], []
+    host_times, service_times, bsizes, bworkers, bmiss = [], [], [], [], []
+    all_stats: list[FetchStats] = []
+
+    route = np.asarray(owner)[request_ids] if request_ids.size else \
+        np.zeros(0, np.int64)
+    for w in range(k):
+        sel = route == w
+        ids_w, arr_w = request_ids[sel], arrivals[sel]
+        t_free = 0.0
+        i = 0
+        while i < ids_w.shape[0]:
+            take, t_dispatch = batchers[w].dispatch(arr_w, i, t_free)
+            mb = MicroBatch(
+                ids=ids_w[i:i + take],
+                arrivals=arr_w[i:i + take],
+                dispatch_time=t_dispatch,
+                batch=batchers[w].build_mfg(ids_w[i:i + take]),
+            )
+            out, stats, host_s = engines[w].answer(mb.batch)
+            est = engines[w].estimate(mb.batch, stats, cluster)
+            t_done = t_dispatch + est.service_time
+            latencies.append(t_done - mb.arrivals)
+            queue_waits.append(t_dispatch - mb.arrivals)
+            lat_worker.append(np.full(take, w, dtype=np.int64))
+            served_ids.append(mb.ids)
+            logits.append(out[:take])
+            host_times.append(host_s)
+            service_times.append(est.service_time)
+            bsizes.append(take)
+            bworkers.append(w)
+            bmiss.append(stats.num_remote_miss)
+            all_stats.append(stats)
+            t_free = t_done
+            i += take
+
+    def cat(parts, empty):
+        return np.concatenate(parts) if parts else empty
+
+    return ServingReport(
+        k=k,
+        offered_qps=(request_ids.shape[0] / max(float(arrivals.max()), 1e-9)
+                     if request_ids.size else 0.0),
+        latency=cat(latencies, np.zeros(0)),
+        latency_worker=cat(lat_worker, np.zeros(0, np.int64)),
+        host_time=np.asarray(host_times),
+        service_time=np.asarray(service_times),
+        batch_size=np.asarray(bsizes, dtype=np.int64),
+        batch_worker=np.asarray(bworkers, dtype=np.int64),
+        fetch=FetchStats.merge(all_stats),
+        duration=float(arrivals.max()) if arrivals.size else 0.0,
+        queue_wait=cat(queue_waits, np.zeros(0)),
+        batch_miss=np.asarray(bmiss, dtype=np.int64),
+        served_ids=cat(served_ids, np.zeros(0, np.int64)),
+        logits=cat(logits, None),
+    )
+
+
+def build_serving(
+    graph,
+    vbook,
+    spec: GNNSpec,
+    params: Any,
+    embeddings: list,
+    *,
+    device: torch.device,
+    hops: int = 1,
+    fanout: int = 10,
+    max_batch: int = 32,
+    max_wait: float = 2e-3,
+    cache_policy: str = "none",
+    cache_budget: int = 0,
+    seed: int = 0,
+) -> tuple[list, list, RowStore]:
+    """Wire per-worker (engines, batchers) over one embedding store.
+
+    `embeddings` is the `LayerwiseInference.run()` output (layer outputs,
+    input side first); serving with `hops` recompute layers reads the
+    layer-(L-1-hops) store."""
+    L = spec.num_layers
+    if hops == L:
+        raise ValueError(
+            "hops == num_layers is feature-store inference — use the "
+            "mini-batch path; serving reads embeddings")
+    source = embeddings[L - 1 - hops]
+    store = build_embedding_stores(
+        graph, vbook, [source], policy=cache_policy, budget=cache_budget,
+        seed=seed,
+    )[0]
+    fanouts = (fanout,) * hops
+    tiled = spec.agg_backend != "scatter"
+    engines, batchers = [], []
+    for w in range(vbook.k):
+        batchers.append(MicroBatcher.build(
+            graph, fanouts=fanouts, max_batch=max_batch, owner=vbook.owner,
+            worker=w, tiled_layout=tiled, max_wait=max_wait, seed=seed + w,
+        ))
+        engines.append(ServeEngine(
+            spec=spec, params=params, store=store,
+            plan=batchers[w].plan, hops=hops, worker=w, device=device,
+        ))
+    return engines, batchers, store

@@ -1,0 +1,180 @@
+"""The port's NumPy host modules are copies of the JAX package's: on the same
+inputs they give bit-identical arrays (np.array_equal, no tolerance)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.core import cost_model as j_cost  # noqa: E402
+from repro.core import edge_partition as j_ep  # noqa: E402
+from repro.core import graph as j_graph  # noqa: E402
+from repro.core import metrics as j_metrics  # noqa: E402
+from repro.core import partition_book as j_book  # noqa: E402
+from repro.core import vertex_partition as j_vp  # noqa: E402
+from repro.gnn import feature_store as j_fs  # noqa: E402
+from repro.gnn.models import GNNSpec as JSpec  # noqa: E402
+from repro.kernels import tiling as j_tiling  # noqa: E402
+from repro.serve import batcher as j_batcher  # noqa: E402
+from repro_torch.core import cost_model as t_cost  # noqa: E402
+from repro_torch.core import edge_partition as t_ep  # noqa: E402
+from repro_torch.core import graph as t_graph  # noqa: E402
+from repro_torch.core import metrics as t_metrics  # noqa: E402
+from repro_torch.core import partition_book as t_book  # noqa: E402
+from repro_torch.core import vertex_partition as t_vp  # noqa: E402
+from repro_torch.gnn import feature_store as t_fs  # noqa: E402
+from repro_torch.gnn.models import GNNSpec as TSpec  # noqa: E402
+from repro_torch.kernels import tiling as t_tiling  # noqa: E402
+from repro_torch.serve import batcher as t_batcher  # noqa: E402
+
+PARTITIONERS = ([("edge", m) for m in sorted(j_ep.EDGE_PARTITIONERS)]
+                + [("vertex", m) for m in sorted(j_vp.VERTEX_PARTITIONERS)])
+
+
+def assert_same(a, b, where="value"):
+    """Bitwise equality through dataclasses, tuples, lists and arrays."""
+    if dataclasses.is_dataclass(a) or hasattr(a, "_fields"):
+        assert type(a).__name__ == type(b).__name__, where
+        names = ([f.name for f in dataclasses.fields(a)]
+                 if dataclasses.is_dataclass(a) else a._fields)
+        for name in names:
+            assert_same(getattr(a, name), getattr(b, name), f"{where}.{name}")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray) and isinstance(b, np.ndarray), where
+        assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True), where
+    else:
+        assert a == b or (a != a and b != b), f"{where}: {a!r} != {b!r}"
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return (j_graph.paper_graph("OR", scale=0.02, seed=0),
+            t_graph.paper_graph("OR", scale=0.02, seed=0))
+
+
+def _partition(g, kind, method, ep, vp):
+    if kind == "edge":
+        return ep.partition_edges(g, 4, method, seed=0)
+    return vp.partition_vertices(g, 4, method, seed=0)
+
+
+@pytest.mark.parametrize("key", ["HO", "DI", "EN", "EU", "OR"])
+def test_paper_graph_identical(key):
+    jg = j_graph.paper_graph(key, scale=0.01, seed=0)
+    tg = t_graph.paper_graph(key, scale=0.01, seed=0)
+    assert_same(jg, tg, key)
+    assert_same(jg.csr(), tg.csr(), f"{key}.csr")
+    assert_same(jg.degrees(), tg.degrees(), f"{key}.degrees")
+
+
+@pytest.mark.parametrize("kind,method", PARTITIONERS)
+def test_partitioners_and_metrics_identical(graphs, kind, method):
+    jg, tg = graphs
+    ja = _partition(jg, kind, method, j_ep, j_vp)
+    ta = _partition(tg, kind, method, t_ep, t_vp)
+    assert_same(ja, ta, method)
+    if kind == "edge":
+        assert_same(j_metrics.edge_partition_metrics(jg, ja, 4),
+                    t_metrics.edge_partition_metrics(tg, ta, 4), method)
+    else:
+        assert_same(j_metrics.vertex_partition_metrics(jg, ja, 4),
+                    t_metrics.vertex_partition_metrics(tg, ta, 4), method)
+
+
+@pytest.mark.parametrize("method", ["hep100", "random", "hdrf"])
+@pytest.mark.parametrize("tiled", [True, False])
+def test_edge_book_identical(graphs, method, tiled):
+    jg, tg = graphs
+    a = j_ep.partition_edges(jg, 4, method, seed=0)
+    jb = j_book.build_edge_book(jg, a, 4, tiled_layout=tiled)
+    tb = t_book.build_edge_book(tg, a, 4, tiled_layout=tiled)
+    assert_same(jb, tb, method)
+    assert_same(jb.master_assignment(), tb.master_assignment())
+    local = np.random.default_rng(0).normal(
+        size=tb.vglobal.shape + (3,)).astype(np.float32)
+    assert_same(jb.scatter_to_global(local), tb.scatter_to_global(local))
+
+
+@pytest.mark.parametrize("method", ["metis", "random"])
+def test_vertex_book_identical(graphs, method):
+    jg, tg = graphs
+    owner = j_vp.partition_vertices(jg, 4, method, seed=0)
+    assert_same(j_book.build_vertex_book(jg, owner, 4),
+                t_book.build_vertex_book(tg, owner, 4), method)
+
+
+@pytest.mark.parametrize("case", ["plain", "valid_per_tile", "tiling"])
+def test_tiled_layout_identical(case):
+    rng = np.random.default_rng(4)
+    dst = rng.integers(0, 700, 3000).astype(np.int32)
+    kw = {}
+    if case == "valid_per_tile":
+        kw = {"valid": rng.random(3000) < 0.5, "per_tile": 2048}
+    elif case == "tiling":
+        kw = {"tile_v": 128, "block_e": 256}
+    assert_same(j_tiling.prepare_tiled_edges(dst, 700, **kw),
+                t_tiling.prepare_tiled_edges(dst, 700, **kw))
+    kw.pop("per_tile", None)
+    assert_same(j_tiling.tiled_need_per_tile(dst, 700, **kw),
+                t_tiling.tiled_need_per_tile(dst, 700, **kw))
+    assert (j_tiling.tiled_shape(700, kw.get("tile_v", 256))
+            == t_tiling.tiled_shape(700, kw.get("tile_v", 256)))
+
+
+@pytest.mark.parametrize("tiled", [True, False])
+@pytest.mark.parametrize("fanouts", [(10,), (5, 5)])
+def test_microbatcher_batches_identical(graphs, tiled, fanouts):
+    """Same seed, same request stream -> the same padded MFGs, batch after
+    batch (the batchers' RNG streams stay in step)."""
+    jg, tg = graphs
+    owner = j_vp.partition_vertices(jg, 4, "metis", seed=0)
+    kw = dict(fanouts=fanouts, max_batch=8, owner=owner, worker=1,
+              tiled_layout=tiled, seed=3)
+    jb = j_batcher.MicroBatcher.build(jg, **kw)
+    tb = t_batcher.MicroBatcher.build(tg, **kw)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        ids = rng.integers(0, jg.num_vertices, rng.integers(1, 9))
+        assert_same(jb.build_mfg(ids), tb.build_mfg(ids), "mfg")
+    arrivals = np.sort(rng.uniform(0, 0.01, 20))
+    assert jb.dispatch(arrivals, 0, 0.0) == tb.dispatch(arrivals, 0, 0.0)
+
+
+@pytest.mark.parametrize("policy", ["none", "random", "degree", "halo"])
+def test_cache_selection_and_row_store_identical(graphs, policy):
+    jg, tg = graphs
+    owner = j_vp.partition_vertices(jg, 4, "metis", seed=0)
+    jvb = j_book.build_vertex_book(jg, owner, 4)
+    tvb = t_book.build_vertex_book(tg, owner, 4)
+    jids = j_fs.select_cache_vertices(jg, jvb, policy, 40, seed=2)
+    tids = t_fs.select_cache_vertices(tg, tvb, policy, 40, seed=2)
+    assert_same(jids, tids, policy)
+    rows = np.random.default_rng(1).normal(
+        size=(jg.num_vertices, 6)).astype(np.float32)
+    js = j_fs.RowStore.create(jvb, jids, rows=rows, policy=policy, budget=40)
+    ts = t_fs.RowStore.create(tvb, tids, rows=rows, policy=policy, budget=40)
+    rng = np.random.default_rng(7)
+    for w in range(4):
+        ids = rng.integers(0, jg.num_vertices, 50)
+        (jr, jst), (tr, tst) = js.gather(w, ids), ts.gather(w, ids)
+        assert_same(jr, tr, "rows")
+        assert tuple(jst) == tuple(tst)
+        assert jst.hit_rate == tst.hit_rate
+
+
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
+@pytest.mark.parametrize("hops", [1, 2])
+def test_serve_request_identical(model, hops):
+    kw = dict(model=model, feature_dim=32, hidden_dim=48, num_classes=7,
+              num_layers=3)
+    for args in [(200, 80, 0, 1000), (37, 12, 5, 333), (1, 0, 0, 0)]:
+        je = j_cost.serve_request(*args, JSpec(**kw), embed_dim=48, hops=hops)
+        te = t_cost.serve_request(*args, TSpec(**kw), embed_dim=48, hops=hops)
+        assert_same(je, te, model)
+    assert_same(j_cost.PAPER_CLUSTER, t_cost.PAPER_CLUSTER)
