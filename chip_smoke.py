@@ -8,8 +8,10 @@ ends the script with a traceback and a non-zero exit:
 
   1. device  — the card's name and power limit (nvidia-smi) and
                torch.cuda.get_device_name().
-  2. build   — compile kernels/csrc/segment_reduce.cu with nvcc for sm_90a
-               (the ptxas register / shared-memory report is printed).
+  2. build   — compile the three kernels under kernels/csrc/
+               (segment_reduce.cu, flash_attention.cu, decode_attention.cu)
+               with nvcc for sm_90a, one nvcc each, all started together
+               (each ptxas register / shared-memory report is printed).
   3. kernels — the hand kernel against its plain PyTorch version on the
                card, sum and max, fp32 and bf16: the shapes of
                tests/test_kernels.py and the edge cases (an unreached row,
@@ -28,10 +30,26 @@ ends the script with a traceback and a non-zero exit:
                again on the `local_dst` that phase 4 passed it (kept from
                its first launch) with random messages: the kernel against
                its plain version, and kernel / plain / library / bound ms.
+  6. attention — the flash and decode kernels against their plain versions
+               at the shapes of tests/test_kernels.py, at ragged shapes and
+               at the decode edge cases (valid_len 0, 1, S, S + 5), fp32 and
+               bf16, two launches bitwise equal; then the attention entry
+               points (ops.flash_attention, ops.decode_attention) at
+               qwen3-4b widths (32 heads, 8 KV heads repeated to 32, head
+               dim 128), bf16 and fp32, with their launch counters set to 0
+               just before and read just after: prefill q, k, v
+               [1, 32, 4096, 128] causal, decode q [8, 32, 128] against a
+               [8, 32, 32768, 128] cache at valid_len 30000; each held
+               against the plain version (bf16 also row by row, see
+               BF16_ROW_TOL; the check is shown to reject a zeroed output
+               and, for decode, one over half the cache), and kernel /
+               plain / SDPA / bound ms (SDPA is the yardstick only; the port
+               never calls it).
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phase 4 made at that shape,
-then the card's name and power limit, and as the last line
+entry per shape of phase 5 with the launches phase 4 made at that shape
+and one per (attention kernel, shape, dtype) of phase 6, then the card's
+name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
@@ -55,6 +73,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM
+H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense, H100 SXM
 SERVE_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_gnn_distributed.py:38
 # A sum of n unit-normal terms taken in two orders (the kernel's layout
 # order, the plain version's atomics) differs by O(sqrt(n)) ulps of the
@@ -66,6 +85,24 @@ KERNEL_TOL = {  # (rtol, atol), tests/test_kernels.py:26,46
     ("sum", "bfloat16"): (2e-2, 1.6e-1),
     ("max", "bfloat16"): (2e-2, 1.6e-1),
 }
+# attention widths of qwen3-4b (src/repro/configs/qwen3_4b.py: num_heads 32,
+# num_kv_heads 8, head_dim 128); the KV heads are repeated to 32 before the
+# call, as models/layers.py _repeat_kv does
+QWEN3_4B = {"num_heads": 32, "num_kv_heads": 8, "head_dim": 128}
+PREFILL = {"batch": 1, "seq": 4096}
+DECODE = {"batch": 8, "cache": 32768, "valid_len": 30000}
+# (rtol, atol) of the attention sweeps, tests/test_kernels.py:198
+ATTN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 0.15)}
+# bf16 is also held per output row: the row's largest |kernel - plain| at
+# most this share of its largest |plain| value, 4 to 8 bf16 ulps there (an
+# ulp is 2^-8 to 2^-7 of a value): both sides round p and the output to
+# bf16, in different places, and each can land 1-2 ulps from the exact
+# value.
+# Past a few hundred keys a whole output row is smaller than the test
+# file's 0.15 atol (its rms is about sqrt(e / keys) for unit-normal
+# inputs), so that atol alone would pass a zeroed or truncated output;
+# this limit does not (checked on the main path).
+BF16_ROW_TOL = 2.0 ** -4
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -92,16 +129,19 @@ def phase_device(torch) -> tuple[str, str]:
 
 
 # ---------------------------------------------------------------- phase 2
-def phase_build(spmm) -> float:
-    t0 = time.perf_counter()
-    path = spmm.build()
-    seconds = time.perf_counter() - t0
-    spmm.load()
-    say(f"[build] {path.name} in {seconds:.2f}s")
-    for line in (spmm.build_log or "").splitlines():
-        if "registers" in line or "error" in line.lower():
-            say(f"[build]   {line.strip()}")
-    return seconds
+def phase_build(libraries) -> None:
+    """Build every kernel library at once (one nvcc each), then load them;
+    print each build's time and ptxas report."""
+    from repro_torch.kernels._build import build_all
+
+    seconds = build_all(libraries)
+    for lib in libraries:
+        lib.load()
+        say(f"[build] {lib.source.name} in {seconds[lib.name]:.2f}s")
+        for line in (lib.build_log or "").splitlines():
+            if ("registers" in line or "error" in line.lower()
+                    or "Compiling entry" in line or "spill" in line):
+                say(f"[build]   {line.strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -381,6 +421,274 @@ def phase_shapes(torch, spmm, seen) -> dict:
     return rows_out
 
 
+# ---------------------------------------------------------------- phase 6
+def _attn_inputs(torch, shape_q, shape_kv, dtype, seed, kv_heads=None):
+    """q and k, v from one seed, on the card. With `kv_heads`, k and v are
+    drawn with that many heads and repeated to q's (models/layers.py
+    _repeat_kv: each KV head serves H / kv_heads consecutive query heads)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(shape_q, device="cuda", generator=gen).to(dtype)
+    if kv_heads is None:
+        k = torch.randn(shape_kv, device="cuda", generator=gen).to(dtype)
+        v = torch.randn(shape_kv, device="cuda", generator=gen).to(dtype)
+        return q, k, v
+    b, h, s, d = shape_kv
+    small = (b, kv_heads, s, d)
+    k = torch.randn(small, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(small, device="cuda", generator=gen).to(dtype)
+    return (q, k.repeat_interleave(h // kv_heads, dim=1),
+            v.repeat_interleave(h // kv_heads, dim=1))
+
+
+def _attn_tol(dtype, n_keys: int) -> tuple[float, float]:
+    """(rtol, atol) of a kernel against its plain version. bf16: the test
+    file's 3e-2 / 0.15: the kernel rounds the unnormalised p to bf16 before
+    PV, the oracle the normalised one, and the two bf16 outputs round once
+    more. fp32: the test file's 2e-5 / 1e-4 up to 1024 keys, the atol grown
+    as sqrt(keys / 1024) past that: the output is a weighted mean over up to
+    `n_keys` terms summed in another order (tiles vs one matmul)."""
+    if dtype == "bfloat16":
+        return ATTN_TOL[dtype]
+    rtol, atol = ATTN_TOL[dtype]
+    return rtol, atol * math.sqrt(max(n_keys / 1024, 1.0))
+
+
+def _row_rel_err(torch, out, plain) -> float:
+    """The largest, over output rows (the last dim), of the row's largest
+    |out - plain| over its largest |plain|."""
+    diff = (out.float() - plain.float()).abs().amax(dim=-1)
+    scale = plain.float().abs().amax(dim=-1).clamp_min(1e-30)
+    return float((diff / scale).max())
+
+
+def _hold_attn(torch, name, out, plain, dtype, n_keys):
+    """Hold a kernel's output against its plain version: every dtype at
+    `_attn_tol`, bf16 also per row at BF16_ROW_TOL. Returns the max abs
+    error, the max row-relative error and the (rtol, atol) used."""
+    rtol, atol = _attn_tol(dtype, n_keys)
+    assert out.shape == plain.shape and out.dtype == plain.dtype, name
+    assert bool(torch.isfinite(out.float()).all()), f"{name}: not finite"
+    torch.testing.assert_close(out.float(), plain.float(), rtol=rtol,
+                               atol=atol, msg=lambda m: f"{name}: {m}")
+    rel = _row_rel_err(torch, out, plain)
+    if dtype == "bfloat16":
+        assert rel <= BF16_ROW_TOL, (
+            f"{name}: row-relative error {rel:.3g} > {BF16_ROW_TOL}")
+    return _max_abs_err(torch, out, plain), rel, (rtol, atol)
+
+
+def _rejects(torch, name, wrong, plain, dtype, n_keys) -> None:
+    """The check `_hold_attn` makes must fail on a wrong output."""
+    try:
+        _hold_attn(torch, name, wrong, plain, dtype, n_keys)
+    except AssertionError:
+        return
+    raise AssertionError(f"{name}: the tolerance passes a wrong output")
+
+
+def attention_checks(torch, flash, decode) -> list:
+    """Each kernel against its plain version at the shapes of
+    tests/test_kernels.py, at ragged shapes and at the decode edge cases
+    (valid_len 0, 1, S, S + 5; the mean of v at 0), fp32 and bf16, with two
+    launches on the same input bitwise equal."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name_t = str(dtype).removeprefix("torch.")
+        for bh, sq, skv, d, causal in [
+                (2, 256, 256, 64, True), (2, 256, 256, 64, False),
+                (2, 512, 512, 128, True), (2, 512, 512, 128, False),
+                (2, 256, 1024, 64, False),
+                (3, 200, 200, 128, True), (4, 77, 333, 64, False),
+                (1, 1, 1, 128, True)]:
+            q, k, v = _attn_inputs(torch, (bh, sq, d), (bh, skv, d), dtype,
+                                   bh + sq + skv + d)
+            out = flash.flash_attention(q, k, v, causal=causal)
+            again = flash.flash_attention(q, k, v, causal=causal)
+            assert torch.equal(out, again), "flash: repeat differs"
+            plain = flash.flash_attention_plain(q, k, v, causal=causal)
+            name = f"flash {name_t} {bh}x{sq}x{skv}x{d} causal={causal}"
+            err, rel, tol = _hold_attn(torch, name, out, plain, name_t, skv)
+            rows.append({"kernel": "flash", "shape": name, "err": err,
+                         "row_rel_err": rel, "tol": tol})
+            say(f"[attention] {name}: max |err| {err:.3g} row-relative "
+                f"{rel:.3g} tol {tol}")
+        for bh, s, d, valids in [(2, 1024, 64, (700, 0, 1, 1024, 1029)),
+                                 (8, 2048, 128, (2048, 0, 1, 2053)),
+                                 (1, 1024, 64, (1,)),
+                                 (3, 1000, 128, (999, 0, 1000, 1005)),
+                                 (5, 5, 64, (3, 0))]:
+            q, k, v = _attn_inputs(torch, (bh, d), (bh, s, d), dtype,
+                                   bh + s + d)
+            for valid in valids:
+                for vl in (valid, torch.tensor(valid, device="cuda")):
+                    out = decode.decode_attention(q, k, v, vl)
+                    again = decode.decode_attention(q, k, v, vl)
+                    assert torch.equal(out, again), "decode: repeat differs"
+                    plain = decode.decode_attention_plain(q, k, v, valid)
+                    name = (f"decode {name_t} {bh}x{s}x{d} valid={valid}"
+                            f" ({type(vl).__name__})")
+                    err, rel, tol = _hold_attn(
+                        torch, name, out, plain, name_t,
+                        min(valid, s) if valid > 0 else s)
+                    rows.append({"kernel": "decode", "shape": name,
+                                 "err": err, "row_rel_err": rel, "tol": tol})
+                say(f"[attention] {name}: max |err| {err:.3g} row-relative "
+                    f"{rel:.3g} tol {tol}")
+            # valid_len <= 0: every slot is masked alike, the mean of v
+            mean = v.float().mean(dim=1).to(dtype)
+            _hold_attn(torch, f"decode {name_t} {bh}x{s}x{d} valid=0 vs mean",
+                       decode.decode_attention(q, k, v, 0), mean, name_t, s)
+    return rows
+
+
+def _attn_bound(dtype, bh, sq, skv, d, *, causal=False, valid=None):
+    """(bound ms, bound by) of a flash call (q [bh, sq, d], k, v [bh, skv,
+    d]) or, with `valid`, a decode call (sq = 1): the larger of the bytes the
+    call must move (each input read once, the output written once; decode
+    reads only the valid slots) over 3.35 TB/s and its operations (QK^T and
+    PV, 2 flops a multiply-add, over the unmasked (query, key) pairs) over
+    the peak for its type (bf16 tensor cores 989 TFLOP/s, fp32 outside them
+    67 TFLOP/s)."""
+    b = 2 if dtype == "bfloat16" else 4
+    peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_FP32_FLOPS
+    if valid is not None:
+        skv = min(max(valid, 0), skv) or skv  # valid_len <= 0 walks every slot
+        nbytes = (2 * bh * sq * d + 2 * bh * skv * d) * b + 4
+        pairs = skv
+    else:
+        nbytes = (2 * bh * sq * d + 2 * bh * skv * d) * b
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    ops = 4 * bh * d * pairs
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
+    """The attention main path at qwen3-4b widths, through the entry points
+    (ops.flash_attention / ops.decode_attention), with the launch counters
+    set to 0 just before and read just after; then each kernel against its
+    plain version on those inputs, two launches bitwise equal, and kernel /
+    plain / SDPA / bound times."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checks = attention_checks(torch, flash, decode)
+    h, kvh, d = QWEN3_4B["num_heads"], QWEN3_4B["num_kv_heads"], \
+        QWEN3_4B["head_dim"]
+    b, s = PREFILL["batch"], PREFILL["seq"]
+    db, ds, valid = DECODE["batch"], DECODE["cache"], DECODE["valid_len"]
+    F = torch.nn.functional
+    entries, results = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        name_t = str(dtype).removeprefix("torch.")
+        torch.cuda.empty_cache()
+        # ---- prefill
+        q, k, v = _attn_inputs(torch, (b, h, s, d), (b, h, s, d), dtype, 1,
+                               kv_heads=kvh)
+        flash.LAUNCHES.clear()
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = sum(flash.LAUNCHES.values())
+        assert launches > 0, "prefill: the flash kernel never launched"
+        assert out.shape == q.shape and out.dtype == dtype
+        fold = lambda x: x.reshape(b * h, x.shape[2], d)  # noqa: E731
+        qf, kf, vf = fold(q), fold(k), fold(v)
+        again = flash.flash_attention(qf, kf, vf, causal=True)
+        assert torch.equal(again, fold(out)), "prefill: repeat differs"
+        plain = flash.flash_attention_plain(qf, kf, vf, causal=True)
+        err, rel, tol = _hold_attn(torch, f"prefill {name_t}", fold(out),
+                                   plain, name_t, s)
+        _rejects(torch, f"prefill {name_t} zeros", torch.zeros_like(plain),
+                 plain, name_t, s)
+        del plain, again
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib_err = _max_abs_err(torch, lib_out, out)
+        del lib_out
+        ms = _time_ms(torch, lambda: flash.flash_attention(
+            qf, kf, vf, causal=True), 10)
+        plain_ms = _time_ms(torch, lambda: flash.flash_attention_plain(
+            qf, kf, vf, causal=True), 5)
+        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10)
+        bound_ms, bound_by = _attn_bound(name_t, b * h, s, s, d, causal=True)
+        entries.append(_attn_entry(
+            f"flash_attention[{name_t},BH={b * h},S={s},D={d},causal]",
+            "flash_attention.cu", "src/repro/kernels/flash_attention.py:32",
+            launches, err, ms, plain_ms, bound_ms, bound_by, library_ms))
+        results.append(dict(entries[-1], tol=tol, row_rel_err=rel,
+                            library_max_abs_err=lib_err))
+        say(f"[attention] prefill {name_t} [{b},{h},{s},{d}] causal: "
+            f"launches {launches}, err {err:.3g} (tol {tol}), row-relative "
+            f"{rel:.3g}, ms {ms:.4f} "
+            f"plain {plain_ms:.4f} sdpa {library_ms:.4f} (sdpa vs kernel "
+            f"{lib_err:.3g}) bound {bound_ms:.4f} ({bound_by})")
+        del q, k, v, qf, kf, vf, out
+        torch.cuda.empty_cache()
+        # ---- decode
+        q, k, v = _attn_inputs(torch, (db, h, d), (db, h, ds, d), dtype, 2,
+                               kv_heads=kvh)
+        decode.LAUNCHES.clear()
+        out = ops.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        launches = sum(decode.LAUNCHES.values())
+        assert launches > 0, "decode: the decode kernel never launched"
+        assert out.shape == q.shape and out.dtype == dtype
+        qf, kf, vf = (q.reshape(db * h, d), k.reshape(db * h, ds, d),
+                      v.reshape(db * h, ds, d))
+        valid_t = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        again = decode.decode_attention(qf, kf, vf, valid_t)
+        assert torch.equal(again, out.reshape(db * h, d)), \
+            "decode: repeat differs"
+        plain = decode.decode_attention_plain(qf, kf, vf, valid)
+        err, rel, tol = _hold_attn(torch, f"decode {name_t}",
+                                   out.reshape(db * h, d), plain, name_t,
+                                   valid)
+        _rejects(torch, f"decode {name_t} zeros", torch.zeros_like(plain),
+                 plain, name_t, valid)
+        _rejects(torch, f"decode {name_t} half the cache",
+                 decode.decode_attention_plain(qf, kf, vf, valid // 2),
+                 plain, name_t, valid)
+        del plain, again
+        ks, vs = k[:, :, :valid], v[:, :, :valid]
+        q4 = q[:, :, None]
+        lib_out = F.scaled_dot_product_attention(q4, ks, vs)[:, :, 0]
+        lib_err = _max_abs_err(torch, lib_out, out)
+        del lib_out
+        ms = _time_ms(torch, lambda: decode.decode_attention(
+            qf, kf, vf, valid_t), 20)
+        plain_ms = _time_ms(torch, lambda: decode.decode_attention_plain(
+            qf, kf, vf, valid_t), 5)
+        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, ks, vs), 20)
+        bound_ms, bound_by = _attn_bound(name_t, db * h, 1, ds, d,
+                                         valid=valid)
+        entries.append(_attn_entry(
+            f"decode_attention[{name_t},BH={db * h},S={ds},valid={valid},"
+            f"D={d}]", "decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:26", launches, err, ms,
+            plain_ms, bound_ms, bound_by, library_ms))
+        results.append(dict(entries[-1], tol=tol, row_rel_err=rel,
+                            library_max_abs_err=lib_err))
+        say(f"[attention] decode {name_t} q [{db},{h},{d}] cache "
+            f"[{db},{h},{ds},{d}] valid {valid}: launches {launches}, err "
+            f"{err:.3g} (tol {tol}), row-relative {rel:.3g}, ms {ms:.4f} "
+            f"plain {plain_ms:.4f} sdpa "
+            f"{library_ms:.4f} (sdpa vs kernel {lib_err:.3g}) bound "
+            f"{bound_ms:.4f} ({bound_by})")
+        del q, k, v, qf, kf, vf, ks, vs, q4, out
+        torch.cuda.empty_cache()
+    return entries, checks + results
+
+
+def _attn_entry(name, source, replaces, launches, err, ms, plain_ms,
+                bound_ms, bound_by, library_ms) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 # --------------------------------------------------------------- profile
 def phase_profile(torch, gnn_serve) -> None:
     """`--profile`: the GAT main path's layer-wise pass, run again warm,
@@ -428,6 +736,9 @@ def main() -> int:
     from repro_torch.core import graph as graph_mod
     from repro_torch.core import partition_book as book_mod
     from repro_torch.core.device import resolve_device
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import ops
     from repro_torch.kernels import segment_spmm as spmm
     from repro_torch.kernels import tiling
     from repro_torch.launch import gnn_serve
@@ -435,13 +746,20 @@ def main() -> int:
     resolve_device("cuda")
     t_start = time.perf_counter()
     smi, kind = phase_device(torch)
-    phase_build(spmm)
+    phase_build([spmm.LIBRARY, flash.LIBRARY, decode.LIBRARY])
+    say(f"[time] device + build {time.perf_counter() - t_start:.1f}s")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gnn_serve)
         return 0
     rows_out = phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod)
+    say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
     launches, seen = phase_serve(torch, spmm, gnn_serve)
+    say(f"[time] serve {time.perf_counter() - t_start:.1f}s")
     shapes = phase_shapes(torch, spmm, seen)
+    say(f"[time] shapes {time.perf_counter() - t_start:.1f}s")
+    seen.clear()
+    attn_entries, attn_rows = phase_attention(torch, ops, flash, decode)
+    say(f"[time] attention {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -463,10 +781,12 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    kernels += attn_entries
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(
-        json.dumps(rows_out + list(shapes.values()), indent=1) + "\n")
+        json.dumps(rows_out + list(shapes.values()) + attn_rows, indent=1)
+        + "\n")
     say(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,18 +1,22 @@
-"""Public wrappers for the segment reduce, with device dispatch.
+"""Public wrappers for the kernels, with device dispatch.
 
-Twin of repro/kernels/ops.py (segment_spmm and aggregate). On a CUDA tensor
-the tiled path launches the hand-written kernel (kernels/segment_spmm.py);
-on a CPU tensor it computes the same function in plain PyTorch. "pallas",
-the reference's name for "force the kernel", keeps that meaning here, so
-one `GNNSpec` runs in both packages: it launches the kernel and raises on a
-CPU tensor. Forward only: the kernel path raises if a gradient is
-requested.
+Twin of repro/kernels/ops.py (segment_spmm, aggregate, flash_attention,
+decode_attention). On a CUDA tensor the tiled path and the attention ops
+launch the hand-written kernels (kernels/segment_spmm.py,
+flash_attention.py, decode_attention.py); on a CPU tensor they compute the
+same function in plain PyTorch. "pallas", the reference's name for "force
+the kernel", keeps that meaning here (the aggregate backend, the attention
+ops' `use_pallas=True`), so one `GNNSpec` runs in both packages: it
+launches the kernel and raises on a CPU tensor. Forward only: the kernel
+paths raise if a gradient is requested.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_spmm as _spmm
 from repro_torch.kernels.tiling import DEFAULT_BLOCK_E, DEFAULT_TILE_V, tiled_shape
@@ -103,3 +107,53 @@ def aggregate(
     return segment_spmm(
         msg_pad.index_select(0, edge_order), local_dst, num_rows,
         combiner=reduce, tile_v=tile_v, block_e=block_e)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _use_kernel(x: torch.Tensor, use_pallas: bool | None) -> bool:
+    """None: the kernel for a CUDA tensor, the plain version for a CPU one.
+    True forces the kernel (raises on a CPU tensor); False the plain one."""
+    if use_pallas is None:
+        return x.is_cuda
+    if use_pallas and not x.is_cuda:
+        raise ValueError("use_pallas=True forces the CUDA kernel; got a "
+                         f"tensor on {x.device}")
+    return bool(use_pallas)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, H, Skv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    use_pallas: bool | None = None,
+) -> torch.Tensor:
+    """Forward attention, [B, H, Sq, D] in q's dtype. A causal call needs
+    Sq == Skv (raises ValueError otherwise, on both paths)."""
+    b, h, sq, d = q.shape
+    fn = (_flash.flash_attention if _use_kernel(q, use_pallas)
+          else _flash.flash_attention_plain)
+    fold = lambda x: x.reshape(b * h, x.shape[2], d)  # noqa: E731
+    return fn(fold(q), fold(k), fold(v), causal=causal).reshape(b, h, sq, d)
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, H, D]
+    k: torch.Tensor,  # [B, H, S, D]
+    v: torch.Tensor,
+    valid_len,        # int or 0-d integer tensor
+    *,
+    use_pallas: bool | None = None,
+) -> torch.Tensor:
+    """One query row per (batch, head) against the cache, [B, H, D]; cache
+    slots >= valid_len are masked out."""
+    b, h, s, d = k.shape
+    fn = (_decode.decode_attention if _use_kernel(q, use_pallas)
+          else _decode.decode_attention_plain)
+    return fn(q.reshape(b * h, d), k.reshape(b * h, s, d),
+              v.reshape(b * h, s, d), valid_len).reshape(b, h, d)

@@ -4,9 +4,8 @@ wrapper, and its plain PyTorch version.
 The kernel (csrc/segment_reduce.cu) replaces the TPU kernel
 repro/kernels/segment_spmm.py:segment_spmm. It is compiled with nvcc for
 sm_90a into a shared library with a plain C interface at first use, under
-`build/repro_torch/` at the repository root (named by a hash of the
-source, the nvcc flags and the nvcc version), and bound with ctypes. A
-failed build or launch raises.
+`build/repro_torch/` at the repository root (kernels/_build.py), and bound
+with ctypes. A failed build or launch raises.
 
 `segment_spmm` launches the kernel on CUDA tensors only; `segment_spmm_plain`
 computes the same function with index_add_ / scatter_reduce_ and is what a
@@ -17,16 +16,12 @@ launches per (combiner, num_rows, F): one count per shape it ran at.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from collections import Counter
-from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.tiling import DEFAULT_BLOCK_E, DEFAULT_TILE_V
 
 COMBINERS = ("sum", "max")
@@ -35,71 +30,19 @@ COMBINERS = ("sum", "max")
 # reads them
 LAUNCHES: Counter = Counter()
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-# what the last build printed (the ptxas register / shared-memory report);
-# None until this process built the library
-build_log: str | None = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(
-            "nvcc not found on PATH or under $CUDA_HOME/bin: the segment "
-            "reduce kernel is built from source at first use")
-    return str(path)
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.segment_reduce.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.segment_reduce.restype = ctypes.c_int
 
 
-def build() -> Path:
-    """Compile csrc/segment_reduce.cu (if this source has not been built yet)
-    and return the shared library's path."""
-    global build_log
-    nvcc = _nvcc()
-    version = subprocess.run([nvcc, "--version"], capture_output=True,
-                             text=True, check=True).stdout
-    # the library's name changes with the source, the flags and the compiler
-    key = b"\0".join([SOURCE.read_bytes(), " ".join(NVCC_FLAGS).encode(),
-                      version.encode()])
-    digest = hashlib.sha256(key).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"libsegment_reduce_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def load() -> ctypes.CDLL:
-    """The built kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.segment_reduce.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.segment_reduce.restype = ctypes.c_int
-        lib.segment_reduce_error_string.argtypes = [ctypes.c_int]
-        lib.segment_reduce_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("segment_reduce.cu", "segment_reduce", _bind)
+SOURCE = LIBRARY.source
 
 
 def _check_layout(e: int, num_rows: int, tile_v: int, block_e: int) -> int:
@@ -152,17 +95,14 @@ def segment_spmm(
     out = messages.new_empty((num_rows, f))
     if f == 0:
         return out
-    lib = load()
+    lib = LIBRARY.load()
     with torch.cuda.device(messages.device):
         stream = torch.cuda.current_stream(messages.device).cuda_stream
         rc = lib.segment_reduce(
             messages.data_ptr(), local_dst.data_ptr(), out.data_ptr(),
             n_tiles, e // n_tiles, tile_v, f, _DTYPES[messages.dtype],
             COMBINERS.index(combiner), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"segment_reduce launch failed: CUDA error {rc} "
-            f"({lib.segment_reduce_error_string(rc).decode()})")
+    LIBRARY.check(rc, "segment_reduce")
     LAUNCHES[(combiner, num_rows, f)] += 1
     return out
 
