@@ -15,8 +15,13 @@ ends the script with a traceback and a non-zero exit:
   3. kernels — the hand kernel against its plain PyTorch version on the
                card, sum and max, fp32 and bf16: the shapes of
                tests/test_kernels.py and the edge cases (an unreached row,
-               the -inf pad row, dropped edges). Per shape: max error,
-               kernel / plain / library / bound ms.
+               the -inf pad row, dropped edges). Per shape: two launches
+               bitwise equal; the output bit for bit against its exact
+               oracle (the sum: a layout-order np.add.at fold in fp32 in
+               the segments of the kernel's launch plan, bf16 rounded
+               once; max: scatter_reduce_ amax), shown once to reject an
+               output with one row zeroed; max error against the plain
+               version; kernel / plain / library / bound ms.
   4. serve   — the port's `gnn_serve` entry point at full width (GAT, then
                SAGE: --features 512 --hidden 512 --layers 3 --classes 16,
                4 heads) on OR scale 1.0, hep100, k=4, tiled (the kernel),
@@ -28,8 +33,10 @@ ends the script with a traceback and a non-zero exit:
                times are measured on the card.
   5. shapes  — every (combiner, rows, F) the kernel ran at in phase 4,
                again on the `local_dst` that phase 4 passed it (kept from
-               its first launch) with random messages: the kernel against
-               its plain version, and kernel / plain / library / bound ms.
+               its first launch) with random messages: the checks of
+               phase 3 (at rows=69632, F=512 the sum's fold covers the
+               first columns that fit FOLD_MAX_TERMS terms), and kernel /
+               plain / library / bound ms.
   6. attention — the flash and decode kernels against their plain versions
                at the shapes of tests/test_kernels.py, at ragged shapes and
                at the decode edge cases (valid_len 0, 1, S, S + 5), fp32 and
@@ -79,6 +86,11 @@ SERVE_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_gnn_distributed.py:38
 # order, the plain version's atomics) differs by O(sqrt(n)) ulps of the
 # partial sums: past this many terms a row's atol grows as sqrt(n / it).
 SUM_TERMS_AT_TEST_TOL = 64
+# np.add.at, the layout-order oracle of the fp32 sum, takes seconds per
+# 1e7 (edge, column) terms: past this many the oracle folds only the first
+# columns (a multiple of 8, at least 8), as many as fit; each column is
+# folded on its own, so the check of those columns is as strict
+FOLD_MAX_TERMS = 1 << 26
 KERNEL_TOL = {  # (rtol, atol), tests/test_kernels.py:26,46
     ("sum", "float32"): (1e-5, 8e-5),
     ("max", "float32"): (1e-6, 8e-6),
@@ -164,10 +176,68 @@ def _max_abs_err(torch, a, b) -> float:
     return float(torch.where(same, 0.0, (a - b).abs()).max())
 
 
+def layout_fold(msgs, ldst, rows, tile_v=256, seg=None):
+    """The fp32 sum of a tiled layout in layout order (numpy): np.add.at
+    over the real edges, which folds each row's messages one by one in the
+    order they stand, from 0, as the kernel does. With `seg` (the segment
+    of a launch plan that splits tiles), each `seg`-slot segment of a tile
+    is folded that way on its own, and the segments' sums are added in
+    order, from 0: the kernel's order then."""
+    e, f = msgs.shape
+    per_tile = e // (rows // tile_v)
+    real = (ldst >= 0) & (ldst < tile_v)
+    gdst = (np.arange(e) // per_tile) * tile_v + ldst
+    part_of = (np.arange(e) % per_tile) // (seg or per_tile)
+    out = np.zeros((rows, f), np.float32)
+    for k in range(int(part_of.max()) + 1):
+        part = np.zeros((rows, f), np.float32)
+        sel = real & (part_of == k)
+        np.add.at(part, gdst[sel], msgs[sel].astype(np.float32))
+        out = part if part_of.max() == 0 else out + part
+    return out
+
+
+def _hold_exact(torch, out, expect, what) -> None:
+    assert out.dtype == expect.dtype and out.shape == expect.shape, what
+    if not torch.equal(out, expect):
+        bad = int((out != expect).any(dim=1).sum())
+        raise AssertionError(f"{what}: {bad} rows differ from the exact "
+                             f"oracle")
+
+
+def _exact_oracle(torch, spmm, msgs, ldst, rows, combiner, tile_v, gdst,
+                  lib_msgs):
+    """What the kernel must give bit for bit, in its first columns: max,
+    scatter_reduce_ amax in fp32 (exact in any order); the fp32 / bf16 sum,
+    the layout-order fold in the segments of the kernel's launch plan (the
+    plan of the whole width), bf16 rounded once, over the first columns
+    that fit FOLD_MAX_TERMS terms."""
+    f = msgs.shape[1]
+    if combiner == "max":
+        exact = torch.full((rows, f), float("-inf"), device=msgs.device)
+        exact.scatter_reduce_(0, gdst[:, None].expand(-1, f), lib_msgs.float(),
+                              reduce="amax", include_self=True)
+        return exact.to(msgs.dtype), "scatter_reduce_ amax"
+    cols = f
+    if lib_msgs.numel() > FOLD_MAX_TERMS:
+        cols = min(f, max(8, FOLD_MAX_TERMS // lib_msgs.shape[0] // 8 * 8))
+    n_tiles = rows // tile_v
+    plan = spmm._launch_plan(n_tiles, msgs.shape[0] // n_tiles, tile_v, f,
+                             msgs.dtype)
+    fold = layout_fold(msgs[:, :cols].float().cpu().numpy(),
+                       ldst.cpu().numpy(), rows, tile_v, plan.seg)
+    return (torch.as_tensor(fold, device=msgs.device).to(msgs.dtype),
+            f"layout-order np.add.at in {plan.n_splits} segment(s)"
+            + ("" if cols == f else f", columns 0-{cols - 1}"))
+
+
 def check_kernel(torch, spmm, name, msgs, ldst, rows, combiner, *,
-                 tile_v=256, block_e=512, reps=10):
-    """Hold the kernel against its plain version on the same inputs and
-    time kernel, plain version, library call and bound."""
+                 tile_v=256, block_e=512, reps=10, show_reject=False):
+    """Hold the kernel against its plain version on the same inputs, two
+    launches bitwise equal, and against its exact oracle bit for bit
+    (`_exact_oracle`; with `show_reject`, that check is shown failing an
+    output with one reached row zeroed); time kernel, plain version,
+    library call and bound."""
     e, f = msgs.shape
     per_tile = e // (rows // tile_v)
     real = ldst != tile_v
@@ -180,7 +250,26 @@ def check_kernel(torch, spmm, name, msgs, ldst, rows, combiner, *,
 
     out = spmm.segment_spmm(msgs, ldst, rows, combiner=combiner,
                             tile_v=tile_v, block_e=block_e)
+    again = spmm.segment_spmm(msgs, ldst, rows, combiner=combiner,
+                              tile_v=tile_v, block_e=block_e)
     torch.cuda.synchronize()
+    assert torch.equal(out, again), f"{name}: repeat differs"
+    del again
+    exact, exact_by = _exact_oracle(torch, spmm, msgs, ldst, rows, combiner,
+                                    tile_v, gdst, lib_msgs)
+    cols = exact.shape[1]
+    _hold_exact(torch, out[:, :cols], exact, f"{name} {combiner}")
+    if show_reject:
+        wrong = out[:, :cols].clone()
+        wrong[gdst[0]] = 0
+        try:
+            _hold_exact(torch, wrong, exact, "one row zeroed")
+        except AssertionError:
+            say(f"[kernels] the exact check rejects {combiner} with "
+                f"row {int(gdst[0])} zeroed")
+        else:
+            raise AssertionError("the exact check passes a zeroed row")
+    del exact
     plain = spmm.segment_spmm_plain(msgs, ldst, rows, combiner=combiner,
                                     tile_v=tile_v)
     dtype = str(msgs.dtype).replace("torch.", "")
@@ -222,10 +311,11 @@ def check_kernel(torch, spmm, name, msgs, ldst, rows, combiner, *,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "tol": [rtol, atol],
+        "tol": [rtol, atol], "repeat_equal": True, "bitwise_vs": exact_by,
     }
     say(f"[kernels] {name:<28} {combiner} {dtype:<8} F={f:<4} "
         f"E_tiled={e:<9} real={n_real:<8} n_max={n_max:<5} err={err:.3g} "
+        f"bitwise vs {exact_by}, "
         f"atol={atol:.3g} ms={ms:.4f} "
         f"plain={plain_ms:.4f} library={library_ms:.4f} "
         f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
@@ -269,8 +359,9 @@ def phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod) -> list:
                             (2000, 768, 128)]:
                 msgs, ldst, rows, dst = _test_layout(
                     torch, tiling, e, v, f, e + v + f, dtype, fill)
-                row, out = check_kernel(torch, spmm, f"test {e}x{v}", msgs,
-                                        ldst, rows, combiner)
+                row, out = check_kernel(
+                    torch, spmm, f"test {e}x{v}", msgs, ldst, rows, combiner,
+                    show_reject=(dtype == f32 and e == 257))
                 rows_out.append(row)
                 # an unreached row comes back as the combiner identity
                 unreached = np.setdiff1d(np.arange(rows), dst)

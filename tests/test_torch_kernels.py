@@ -9,6 +9,9 @@ atol 8e-5, fp32 max 1e-6). The CUDA kernel itself runs only on the card
 (chip_smoke.py holds it against the same plain version there).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -22,6 +25,16 @@ from repro_torch.kernels import segment_spmm as spmm  # noqa: E402
 
 JAX_PATHS = [{"use_pallas": False}, {"interpret": True}]
 TOL = {"sum": (1e-5, 8e-5), "max": (1e-6, 8e-6)}
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports only numpy at its top)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _layout(e, v, f, combiner, seed, **tiling):
@@ -196,3 +209,77 @@ def test_kernel_source_exists_and_counters_start_at_zero():
     ops.segment_spmm(torch.as_tensor(msgs_pad), torch.as_tensor(local_dst),
                      rows_p)
     assert spmm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile_v", [128, 256, 512])
+@pytest.mark.parametrize("f", [1, 4, 16, 100, 128, 512, 1000])
+def test_launch_plan_owns_every_element_once(f, tile_v, dtype):
+    """The kernel's launch plan (csrc/segment_reduce.cu reads it as
+    `LaunchPlan` documents): in every segment of a row tile, each (row,
+    column) has exactly one owning (block, warp, lane); the segments cover
+    the tile's slots; and the plan fits the card: dynamic shared memory
+    <= 232,448 B, <= 1,024 threads, grid <= 2^31 - 1."""
+    dt = getattr(torch, dtype)
+    n_tiles, per_tile = 272, 56_832
+    plan = spmm._launch_plan(n_tiles, per_tile, tile_v, f, dt)
+    b = dt.itemsize
+    assert f % plan.vec == 0 and plan.vec * b <= 16
+    assert 32 % plan.lanes == 0 and plan.warps & (plan.warps - 1) == 0
+    assert plan.smem == spmm._smem_bytes(tile_v, plan.cols, plan.stage,
+                                         plan.warps, plan.units)
+    assert plan.smem <= 232_448 and plan.threads <= 1024
+    assert plan.grid == n_tiles * plan.n_splits * plan.n_col_groups
+    assert plan.grid <= 2**31 - 1
+    assert plan.stage % 128 == 0 and plan.stage <= 65_536
+    # the segments of a tile cover its slots, none of them empty
+    assert plan.seg % plan.stage == 0
+    assert (plan.n_splits - 1) * plan.seg < per_tile <= plan.n_splits * plan.seg
+    owners = np.zeros((tile_v, f), np.int64)
+    per_warp = 32 // plan.lanes
+    for group in range(plan.n_col_groups):  # the blocks of one segment
+        for warp in range(plan.warps):
+            for lane in range(32):
+                unit = warp * per_warp + lane // plan.lanes
+                col = group * plan.cols + (lane % plan.lanes) * plan.vec
+                if col >= f:
+                    continue
+                owners[unit::plan.units, col:col + plan.vec] += 1
+    assert (owners == 1).all()
+    # a message row misaligned to 4 bytes takes narrower loads
+    narrow = spmm._launch_plan(n_tiles, per_tile, tile_v, f, dt, align=b)
+    assert narrow.vec == 1
+
+
+@pytest.mark.parametrize("n_tiles,per_tile,tile_v,f", [
+    (1, 512, 60_000, 1),          # the fp32 accumulator exceeds 227 KB
+    (2**31, 512, 256, 4),         # more blocks than a grid holds
+    (2**28, 512, 256, 1000),      # the same through column groups
+    (4, 0, 256, 4),               # an empty tile
+])
+def test_launch_plan_refuses_what_it_cannot_cover(n_tiles, per_tile,
+                                                  tile_v, f):
+    with pytest.raises(ValueError):
+        spmm._launch_plan(n_tiles, per_tile, tile_v, f, torch.float32)
+
+
+@pytest.mark.parametrize("seg", [None, 128])
+@pytest.mark.parametrize("e,v,f", [(257, 256, 128), (1024, 512, 256),
+                                   (50, 256, 4), (2000, 768, 128)])
+def test_layout_order_fold_matches_jax(e, v, f, seg):
+    """chip_smoke.py holds the card's fp32 sum bit for bit against a
+    layout-order np.add.at fold (in the launch plan's segments when it
+    splits tiles); that oracle itself equals the JAX reference (jnp path)
+    at this file's tolerances."""
+    fold = _chip_smoke().layout_fold
+    _, _, msgs_pad, local_dst, rows_p = _layout(e, v, f, "sum", e + v + f,
+                                                per_tile=1024)
+    expect = jops.segment_spmm(jnp.asarray(msgs_pad), jnp.asarray(local_dst),
+                               rows_p, combiner="sum", use_pallas=False)
+    out = fold(msgs_pad, local_dst, rows_p, seg=seg)
+    assert out.dtype == np.float32 and out.shape == (rows_p, f)
+    np.testing.assert_allclose(out, np.asarray(expect), *TOL["sum"])
+    # the kernel's plain version agrees too
+    plain = spmm.segment_spmm_plain(torch.as_tensor(msgs_pad),
+                                    torch.as_tensor(local_dst), rows_p)
+    np.testing.assert_allclose(out, plain.numpy(), *TOL["sum"])
