@@ -11,7 +11,8 @@ ends the script with a traceback and a non-zero exit:
   2. build   — compile the three kernels under kernels/csrc/
                (segment_reduce.cu, flash_attention.cu, decode_attention.cu)
                with nvcc for sm_90a, one nvcc each, all started together
-               (each ptxas register / shared-memory report is printed).
+               (each ptxas register / shared-memory report is printed; a
+               ptxas remark that it serialized the wgmmas fails the run).
   3. kernels — the hand kernel against its plain PyTorch version on the
                card, sum and max, fp32 and bf16: the shapes of
                tests/test_kernels.py and the edge cases (an unreached row,
@@ -38,8 +39,9 @@ ends the script with a traceback and a non-zero exit:
                first columns that fit FOLD_MAX_TERMS terms), and kernel /
                plain / library / bound ms.
   6. attention — the flash and decode kernels against their plain versions
-               at the shapes of tests/test_kernels.py, at ragged shapes and
-               at the decode edge cases (valid_len 0, 1, S, S + 5), fp32 and
+               at the shapes of tests/test_kernels.py, at ragged shapes, at
+               flash shapes that straddle its tiles (STRADDLE) and at the
+               decode edge cases (valid_len 0, 1, S, S + 5), fp32 and
                bf16, two launches bitwise equal; then the attention entry
                points (ops.flash_attention, ops.decode_attention) at
                qwen3-4b widths (32 heads, 8 KV heads repeated to 32, head
@@ -48,10 +50,12 @@ ends the script with a traceback and a non-zero exit:
                [1, 32, 4096, 128] causal, decode q [8, 32, 128] against a
                [8, 32, 32768, 128] cache at valid_len 30000; each held
                against the plain version (bf16 also row by row, see
-               BF16_ROW_TOL; the check is shown to reject a zeroed output
-               and, for decode, one over half the cache), and kernel /
-               plain / SDPA / bound ms (SDPA is the yardstick only; the port
-               never calls it).
+               BF16_ROW_TOL; the check is shown to reject a zeroed output,
+               for prefill one whose last key tile's V is zeroed (a dropped
+               ring stage), for decode one over half the cache), and kernel
+               / plain / SDPA / bound ms (SDPA is the yardstick only; the
+               port never calls it), SDPA also under each backend that
+               takes the call, with the kernels its default dispatch ran.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phase 4 made at that shape
@@ -115,6 +119,15 @@ ATTN_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 0.15)}
 # inputs), so that atol alone would pass a zeroed or truncated output;
 # this limit does not (checked on the main path).
 BF16_ROW_TOL = 2.0 ** -4
+# the flash kernel's key tile by dtype (csrc/flash_attention.cu kBfBlockK,
+# kF32BlockK); its q tile is 128 rows for both
+FLASH_BLOCK_K = {"bfloat16": 128, "float32": 64}
+# flash shapes (bh, sq, skv, d, causal) that straddle the 128-row q tile and
+# the key tiles: one row or key short of a tile, one past it, one past two;
+# and a non-causal Skv past two key tiles that is no multiple of either
+STRADDLE = [(2, s, s, d, causal) for s in (127, 129, 257) for d in (64, 128)
+            for causal in (True, False)] + [(4, 200, 1000, 64, False),
+                                            (4, 200, 1000, 128, False)]
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -150,10 +163,17 @@ def phase_build(libraries) -> None:
     for lib in libraries:
         lib.load()
         say(f"[build] {lib.source.name} in {seconds[lib.name]:.2f}s")
-        for line in (lib.build_log or "").splitlines():
+        log = (lib.build_log or "").splitlines()
+        for line in log:
             if ("registers" in line or "error" in line.lower()
-                    or "Compiling entry" in line or "spill" in line):
+                    or "Compiling entry" in line or "spill" in line
+                    or "wgmma" in line):
                 say(f"[build]   {line.strip()}")
+        # ptxas serializes the wgmmas (remarks C7512 / C7513) when registers
+        # run short or an operand is computed inside a pipeline stage: the
+        # kernel stays right but loses its overlap, so the build fails here
+        serialized = [ln for ln in log if "serialized" in ln]
+        assert not serialized, f"{lib.source.name}: {serialized}"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -590,7 +610,7 @@ def attention_checks(torch, flash, decode) -> list:
                 (2, 512, 512, 128, True), (2, 512, 512, 128, False),
                 (2, 256, 1024, 64, False),
                 (3, 200, 200, 128, True), (4, 77, 333, 64, False),
-                (1, 1, 1, 128, True)]:
+                (1, 1, 1, 128, True)] + STRADDLE:
             q, k, v = _attn_inputs(torch, (bh, sq, d), (bh, skv, d), dtype,
                                    bh + sq + skv + d)
             out = flash.flash_attention(q, k, v, causal=causal)
@@ -691,7 +711,16 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
                                    plain, name_t, s)
         _rejects(torch, f"prefill {name_t} zeros", torch.zeros_like(plain),
                  plain, name_t, s)
-        del plain, again
+        # a dropped ring stage: the last key tile's V rows never arrive
+        dropped = vf.clone()
+        dropped[:, -FLASH_BLOCK_K[name_t]:] = 0
+        _rejects(torch, f"prefill {name_t} last key tile dropped",
+                 flash.flash_attention_plain(qf, kf, dropped, causal=True),
+                 plain, name_t, s)
+        del plain, again, dropped
+        backends = sdpa_backends(torch, q, k, v)
+        say(f"[attention] sdpa backends prefill {name_t} [{b},{h},{s},{d}] "
+            f"causal: {json.dumps(backends)}")
         lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         lib_err = _max_abs_err(torch, lib_out, out)
         del lib_out
@@ -707,7 +736,8 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
             "flash_attention.cu", "src/repro/kernels/flash_attention.py:32",
             launches, err, ms, plain_ms, bound_ms, bound_by, library_ms))
         results.append(dict(entries[-1], tol=tol, row_rel_err=rel,
-                            library_max_abs_err=lib_err))
+                            library_max_abs_err=lib_err,
+                            sdpa_backends=backends))
         say(f"[attention] prefill {name_t} [{b},{h},{s},{d}] causal: "
             f"launches {launches}, err {err:.3g} (tol {tol}), row-relative "
             f"{rel:.3g}, ms {ms:.4f} "
@@ -769,6 +799,35 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
         del q, k, v, qf, kf, vf, ks, vs, q4, out
         torch.cuda.empty_cache()
     return entries, checks + results
+
+
+def sdpa_backends(torch, q, k, v) -> dict:
+    """The yardstick named: SDPA's causal call on q, k, v timed under each
+    backend `sdpa_kernel` lets run (ms, or why it would not run), and the
+    device kernels the default dispatch launched (torch.profiler)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    F = torch.nn.functional
+    call = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True)
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out[backend.name] = _time_ms(torch, call, 5)
+        except RuntimeError as exc:  # this backend does not take the call
+            out[backend.name] = f"not run: {str(exc).splitlines()[0][:80]}"
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    out["default_kernels"] = sorted({e.name[:100] for e in prof.events()
+                                     if e.device_type.name == "CUDA"})
+    return out
 
 
 def _attn_entry(name, source, replaces, launches, err, ms, plain_ms,

@@ -1,48 +1,71 @@
-// Flash attention forward (online softmax), CUDA C++ for sm_90a.
+// Flash attention forward (online softmax), CUDA C++ for sm_90a (Hopper).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (body `_flash_kernel`). Same function: over folded
 // [BH, Sq, D] queries and [BH, Skv, D] keys and values, scores q.k * (the
-// `scale` the wrapper passes, 1/sqrt(D)), masked to -1e30 above the
-// diagonal (q_idx >= k_idx keeps a score) when `causal`, a running max,
-// normaliser and accumulator in fp32, the unnormalised probabilities cast
-// to v's dtype before the PV product, and out = acc / max(l, 1e-30) in q's
-// dtype. Sq and Skv may be anything: the ragged tail of the last tile is
-// masked (keys past Skv get probability 0, rows past Sq are not stored),
-// where the TPU kernel asserts divisibility. The wrapper only passes causal
-// calls with Sq == Skv (kernels/flash_attention.py).
+// `scale` the wrapper passes, 1/sqrt(D)) accumulated in fp32, masked to
+// -1e30 above the diagonal (q_idx >= k_idx keeps a score) when `causal`, a
+// running max, normaliser and accumulator in fp32, the unnormalised
+// probabilities rounded to v's dtype before the PV product, and out = acc /
+// max(l, 1e-30) in q's dtype. Sq and Skv may be anything: the ragged tail
+// of the last tile is masked (keys past Skv get probability 0, rows past Sq
+// are not stored), where the TPU kernel asserts divisibility. The wrapper
+// only passes causal calls with Sq == Skv (kernels/flash_attention.py).
 //
-// Design. One block per (q tile, bh); the q tiles run longest first, so the
-// blocks that walk the most key tiles start first on the causal path. The
-// block walks the key tiles in order, staging each K/V tile in shared
-// memory, and keeps each row's running max, normaliser and output
-// accumulator in registers. On the causal path the key tiles wholly above
-// the block's last row are skipped: every score in them is masked, and a
-// masked score adds exactly 0 once the first tile has given the row a real
-// max (key 0 is never masked). No atomics: each output element has one
-// writer, and runs repeat bit for bit.
-//   - bf16: 4 warps x 16 rows, 64-key tiles. QK^T and PV run on the tensor
-//     cores (mma.sync m16n8k16, fp32 accumulate). Q stays in registers as
-//     A fragments; the QK^T accumulator fragments are, once exponentiated
-//     and rounded to bf16, the A fragments of the PV product, so the
-//     probabilities never leave registers.
-//   - fp32: fp32 FMAs on the CUDA cores (never TF32). 16 x 16 threads, 64
-//     rows x 32-key tiles; Q and K are staged transposed so a thread reads
-//     its 4 rows and 2 keys as one float4 and one float2; the probabilities
-//     go through shared memory (transposed) for the PV product.
+// Common design. One block per (128-row q tile, bh); the q tiles run
+// longest first, so the blocks that walk the most key tiles start first on
+// the causal path. The block walks the key tiles in order and keeps each
+// row's running max, normaliser and output accumulator in registers. On the
+// causal path the key tiles wholly above the block's last row are skipped:
+// every score in them is masked, and a masked score adds exactly 0 once the
+// first tile has given the row a real max (key 0 is never masked). No
+// atomics: each output element has one writer, the key tiles are folded in
+// a fixed order, and runs repeat bit for bit.
+//
+// bf16: wgmma fed by TMA. Three warpgroups: a producer and two consumers
+// of 64 rows each (setmaxnreg: 40 / 232 registers a thread). The
+// producer's elected thread loads the q tile, then every 128-key K and V
+// tile, with cp.async.bulk.tensor from 3-D tensor maps over [BH, S, D]
+// (dims D, S, BH: rows past S are zero-filled by the hardware and never
+// read from the next bh), 128-byte swizzled, a D=128 row as two 64-column
+// boxes. K and V each go through a ring of two stages with a full and an
+// empty mbarrier per stage, so the copies of the next tile are in flight
+// while the consumers run this tile's products. A consumer computes S =
+// Q K^T with wgmma.m64n128k16 (Q and K K-major in shared memory), the
+// online softmax on the accumulator fragments (a row's values sit on the 4
+// lanes of a quad; only the diagonal and ragged tiles compare indices),
+// rounds the unnormalised probabilities to bf16 straight into wgmma's
+// register A fragments (the fp32 accumulator layout of an m64nNk16 product
+// is the A layout of each 16-column slice), and adds O += P V with
+// wgmma.m64nDk16, V read MN-major (D contiguous) through the transpose bit.
+// Each product is waited for before the next step, so a consumer thread
+// holds O (D / 2 registers), S (64) and P (32) and nothing more: with a
+// second P or S live while a product runs, ptxas spilled them, which
+// serializes the wgmmas. The two consumers drift apart instead, so one's
+// softmax runs while the other's products hold the tensor cores.
+//
+// fp32: fp32 FMAs on the CUDA cores, no tensor core in any form. 256
+// threads, 64-key tiles; K and V double-buffered with 16-byte cp.async.cg
+// (the next tile lands while this one is computed). QK^T: a half warp owns
+// 8 rows; each thread an 8 x 8 score micro-tile over every other 4-column
+// chunk of D, summed with its pair by one shuffle (8 + 8 float4 loads per
+// 256 FMAs: 4 FMAs a shared word). PV: each thread 8 rows x D/16 columns;
+// the probabilities come from the row owners by shuffle, V as float4 (8
+// FMAs a shared word).
 //
 // Bound. Causal prefill at qwen3-4b widths (BH 32, S 4096, D 128) does
-// 4 * BH * S^2 * D / 2 = 137.4 GFLOP: compute-bound, 0.139 ms at 989
+// 4 * BH * D * S (S + 1) / 2 = 137.5 GFLOP: compute-bound, 0.139 ms at 989
 // TFLOP/s bf16 and 2.05 ms at 67 TFLOP/s fp32 (H100 SXM); it moves 4 * BH *
-// S * D elements (q, k, v read, out written), 0.13 GB in bf16. This simple
-// design has no TMA, no wgmma and no pipelining of the K/V loads behind the
-// products: a later kernel's work.
+// S * D elements (q, k, v read, out written), 0.13 GB in bf16, 0.04 ms.
 //
 // Plain C entry points, bound from Python with ctypes
-// (kernels/flash_attention.py). Build:
+// (kernels/flash_attention.py). The tensor maps are encoded on the host with
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// lookup, so the library needs no -lcuda. Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,182 +74,302 @@
 namespace {
 
 constexpr float kMasked = -1e30f;  // the TPU kernel's masked score
+constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------------------------------ fp32
-constexpr int kF32BlockQ = 64;
-constexpr int kF32BlockK = 32;
-constexpr int kF32Threads = 256;             // 16 (keys / cols) x 16 (rows)
-constexpr int kF32StrideQ = kF32BlockQ + 4;  // transposed rows stay 16-B aligned
-constexpr int kF32StrideK = kF32BlockK + 4;
+constexpr int kF32BlockQ = 128;
+constexpr int kF32BlockK = 64;
+constexpr int kF32Threads = 256;  // 16 half warps x 8 rows
 
 template <int D>
 struct F32Tiles {
-  float qt[D][kF32StrideQ];          // q tile, transposed: qt[d][row]
-  float kt[D][kF32StrideK];          // k tile, transposed: kt[d][key]
-  float v[kF32BlockK][D];            // v tile
-  float pt[kF32BlockK][kF32StrideQ]; // probabilities, transposed: pt[key][row]
+  static constexpr int kPad = D + 8;  // a row shift of 32 B: no bank conflict
+  float q[kF32BlockQ][kPad];
+  float k[2][kF32BlockK][kPad];
+  float v[2][kF32BlockK][D];
 };
 
+// 16 bytes global -> shared, zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + rows) of a [s, D] matrix into dst[rows][stride], 16 B a
+// copy; rows past s are zeros
+template <int D, int kRows, int kStride>
+__device__ __forceinline__ void stage_rows(float (*dst)[kStride],
+                                           const float* src, int r0, int s,
+                                           int tid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int idx = tid; idx < kRows * kChunks; idx += kF32Threads) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 4;
+    const bool valid = r0 + r < s;
+    cp_async16(&dst[r][c], src + (int64_t)(valid ? r0 + r : 0) * D + c, valid);
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int sq,
                  int skv, float scale, int causal) {
-  constexpr int kCols = D / 16;  // output columns per thread
+  constexpr int kPad = F32Tiles<D>::kPad;
+  constexpr int kGroups = D / 64;  // float4 column groups of a PV thread
   extern __shared__ __align__(16) unsigned char smem[];
   F32Tiles<D>& sm = *reinterpret_cast<F32Tiles<D>*>(smem);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int rg = tid / 16;   // row group: rows rg * 8 .. rg * 8 + 7
+  const int h = tid % 16;    // QK^T: keys kg + 8 j, d chunks dh, dh + 2, ..
+  const int kg = h >> 1, dh = h & 1;  // PV: columns g * 64 + h * 4 + 0..3
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BlockQ;
   const int64_t bh = blockIdx.x;
   const float* qb = q + bh * sq * D;
   const float* kb = k + bh * skv * D;
   const float* vb = v + bh * skv * D;
 
-  for (int idx = tid; idx < kF32BlockQ * D / 4; idx += kF32Threads) {
-    const int i = idx % kF32BlockQ, d = (idx / kF32BlockQ) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + i < sq)
-      x = __ldg(reinterpret_cast<const float4*>(qb + (int64_t)(q0 + i) * D + d));
-    sm.qt[d][i] = x.x;
-    sm.qt[d + 1][i] = x.y;
-    sm.qt[d + 2][i] = x.z;
-    sm.qt[d + 3][i] = x.w;
-  }
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kMasked;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
   const int kv_end = causal ? min(skv, q0 + kF32BlockQ) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kF32BlockK) {
-    __syncthreads();  // the previous tile is consumed (q staged, first trip)
-    for (int idx = tid; idx < kF32BlockK * D / 4; idx += kF32Threads) {
-      const int j = idx % kF32BlockK, d = (idx / kF32BlockK) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < skv)
-        x = __ldg(reinterpret_cast<const float4*>(kb + (int64_t)(k0 + j) * D + d));
-      sm.kt[d][j] = x.x;
-      sm.kt[d + 1][j] = x.y;
-      sm.kt[d + 2][j] = x.z;
-      sm.kt[d + 3][j] = x.w;
-    }
-    for (int idx = tid; idx < kF32BlockK * D / 4; idx += kF32Threads) {
-      const int j = idx / (D / 4), d = (idx % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < skv)
-        x = __ldg(reinterpret_cast<const float4*>(vb + (int64_t)(k0 + j) * D + d));
-      *reinterpret_cast<float4*>(&sm.v[j][d]) = x;
+  const int n_tiles = (kv_end + kF32BlockK - 1) / kF32BlockK;
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  stage_rows<D, kF32BlockQ, kPad>(sm.q, qb, q0, sq, tid);
+  stage_rows<D, kF32BlockK, kPad>(sm.k[0], kb, 0, skv, tid);
+  stage_rows<D, kF32BlockK, D>(sm.v[0], vb, 0, skv, tid);
+  cp_async_commit();
+
+  float m[8], l[8], acc[8][4 * kGroups];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, k0 = t * kF32BlockK;
+    if (t + 1 < n_tiles) {  // the buffer was released at the end of t - 1
+      stage_rows<D, kF32BlockK, kPad>(sm.k[buf ^ 1], kb, k0 + kF32BlockK,
+                                      skv, tid);
+      stage_rows<D, kF32BlockK, D>(sm.v[buf ^ 1], vb, k0 + kF32BlockK, skv,
+                                   tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
 
-    // scores of rows ty*4 + r, keys tx*2 + c
-    float s[4][2];
+    // s[i][j]: row rg * 8 + i, key k0 + kg + 8 j, over this thread's half
+    // of the d chunks, then summed with the other half (lane ^ 1)
+    float s[8][8];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&sm.qt[d][ty * 4]);
-      const float2 b = *reinterpret_cast<const float2*>(&sm.kt[d][tx * 2]);
-      s[0][0] = fmaf(a.x, b.x, s[0][0]);
-      s[0][1] = fmaf(a.x, b.y, s[0][1]);
-      s[1][0] = fmaf(a.y, b.x, s[1][0]);
-      s[1][1] = fmaf(a.y, b.y, s[1][1]);
-      s[2][0] = fmaf(a.z, b.x, s[2][0]);
-      s[2][1] = fmaf(a.z, b.y, s[2][1]);
-      s[3][0] = fmaf(a.w, b.x, s[3][0]);
-      s[3][1] = fmaf(a.w, b.y, s[3][1]);
-    }
-
-    // online softmax; a row's 32 keys sit on the 16 lanes of a half warp
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
-      float mx = m[r];
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int c = dh * 4; c < D; c += 8) {
+      float4 a[8];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + tx * 2 + c;
-        float x = s[r][c] * scale;
-        if (key >= skv) x = -INFINITY;  // past the end: not a key
-        else if (causal && key > row) x = kMasked;
-        s[r][c] = x;
-        mx = fmaxf(mx, x);
-      }
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&sm.q[rg * 8 + i][c]);
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float corr = expf(m[r] - mx);
-      float rs = 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(&sm.k[buf][kg + 8 * j][c]);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        s[r][c] = expf(s[r][c] - mx);
-        rs += s[r][c];
-      }
-      // a butterfly: every lane ends with the same sum
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
-      l[r] = l[r] * corr + rs;
-      m[r] = mx;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= corr;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      sm.pt[tx * 2][ty * 4 + r] = s[r][0];
-      sm.pt[tx * 2 + 1][ty * 4 + r] = s[r][1];
-    }
-    __syncthreads();
-
-    // acc[r][g*4 + u] += sum_j p[row r][j] * v[j][g*64 + tx*4 + u]
-#pragma unroll 4
-    for (int j = 0; j < kF32BlockK; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(&sm.pt[j][ty * 4]);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 w = *reinterpret_cast<const float4*>(&sm.v[j][g * 64 + tx * 4]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[r][g * 4 + 0] = fmaf(pr[r], w.x, acc[r][g * 4 + 0]);
-          acc[r][g * 4 + 1] = fmaf(pr[r], w.y, acc[r][g * 4 + 1]);
-          acc[r][g * 4 + 2] = fmaf(pr[r], w.z, acc[r][g * 4 + 2]);
-          acc[r][g * 4 + 3] = fmaf(pr[r], w.w, acc[r][g * 4 + 3]);
+        for (int i = 0; i < 8; ++i) {
+          s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
         }
       }
     }
+
+    // online softmax in log2 units (x = q.k * scale * log2(e)); a row's 64
+    // keys sit on the 8 lane pairs of its half warp (both lanes of a pair
+    // hold the same values). Masked scores (compared on the diagonal and
+    // ragged tiles only) get probability 0, as the TPU kernel's -1e30 gives
+    // once a row has a real max (key 0 is never masked).
+    const bool edge = k0 + kF32BlockK > skv ||
+                      (causal && k0 + kF32BlockK - 1 > q0 + rg * 8);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] += __shfl_xor_sync(kFull, s[i][j], 1);
+        if (edge) {
+          const int key = k0 + kg + 8 * j;
+          if (key >= skv || (causal && key > q0 + rg * 8 + i))
+            s[i][j] = -INFINITY;
+        }
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o = 2; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      mx = fmaxf(m[i], mx * sl2);  // scale > 0 keeps the order
+      const float corr = exp2f(m[i] - mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = exp2f(fmaf(s[i][j], sl2, -mx));
+        rs += s[i][j];
+      }
+      // a butterfly: every lane of the half warp ends with the same sum
+#pragma unroll
+      for (int o = 2; o < 16; o <<= 1) rs += __shfl_xor_sync(kFull, rs, o);
+      l[i] = l[i] * corr + rs;
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] *= corr;
+    }
+
+    // acc[i][g * 4 + u] += sum_key p[row i][key] * v[key][g * 64 + h * 4 + u];
+    // p[.][kk + 8 jj] is s[.][jj] of lane pair kk of the half warp
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int src = (lane & 16) | (kk * 2);
+        float p[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) p[i] = __shfl_sync(kFull, s[i][jj], src);
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              &sm.v[buf][kk + 8 * jj][g * 64 + h * 4]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][g * 4 + 0] = fmaf(p[i], w.x, acc[i][g * 4 + 0]);
+            acc[i][g * 4 + 1] = fmaf(p[i], w.y, acc[i][g * 4 + 1]);
+            acc[i][g * 4 + 2] = fmaf(p[i], w.z, acc[i][g * 4 + 2]);
+            acc[i][g * 4 + 3] = fmaf(p[i], w.w, acc[i][g * 4 + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is consumed: tile t + 2 may land in it
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty * 4 + r;
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + rg * 8 + i;
     if (row >= sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);  // a divide, as the TPU kernel
+    const float den = fmaxf(l[i], 1e-30f);  // a divide, as the TPU kernel
     float* orow = out + (bh * sq + row) * D;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-      *reinterpret_cast<float4*>(orow + g * 64 + tx * 4) = make_float4(
-          acc[r][g * 4 + 0] / den, acc[r][g * 4 + 1] / den,
-          acc[r][g * 4 + 2] / den, acc[r][g * 4 + 3] / den);
+    for (int g = 0; g < kGroups; ++g)
+      *reinterpret_cast<float4*>(orow + g * 64 + h * 4) = make_float4(
+          acc[i][g * 4 + 0] / den, acc[i][g * 4 + 1] / den,
+          acc[i][g * 4 + 2] / den, acc[i][g * 4 + 3] / den);
   }
 }
 
 // ------------------------------------------------------------------ bf16
-constexpr int kBfBlockQ = 64;  // 4 warps x 16 rows
-constexpr int kBfBlockK = 64;
-constexpr int kBfThreads = 128;
+constexpr int kBfBlockQ = 128;  // two consumer warpgroups x 64 rows
+constexpr int kBfBlockK = 128;
+constexpr int kBfStages = 2;    // stages of the K ring and of the V ring
+constexpr int kBfThreads = 384; // producer warpgroup + 2 consumers
+constexpr int kBox = 64;        // bf16 columns of a 128-byte swizzled box
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// shared memory of one block, from a 1024-byte aligned base (128-byte
+// swizzle repeats every 8 rows of 128 B): q [D / 64][128 rows][64], then per
+// stage k and v [D / 64][128 keys][64], then the barriers
+template <int D>
+struct BfLayout {
+  static constexpr int kQBytes = kBfBlockQ * D * 2;
+  static constexpr int kTileBytes = kBfBlockK * D * 2;  // one of k, v
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kBfStages * kTileBytes;
+  static constexpr int kBars = kV + kBfStages * kTileBytes;
+  // K full, K empty, V full, V empty [stages], q
+  static constexpr int kBytes = kBars + (4 * kBfStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the barrier's phase of parity `parity` has completed; a wait
+// that never ends (a lost copy) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  for (uint32_t spins = 0;; ++spins) {
+    if (spins == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; the barrier's transaction count drops by the box's bytes
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 // two floats rounded to bf16; `lo` in the low half (the lower column)
@@ -235,161 +378,333 @@ __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// d[32] += A[64 x 16] * B[16 x 64], A in registers, B MN-major in shared
+// memory (128-byte swizzle; the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// mma.sync m16n8k16 fragments, with g = lane / 4 and t = lane % 4:
-//   A (16 x 16, row major): regs {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
-//                                 (g+8, 2t+8..)}
-//   B (16 x 8, k x n):      regs {(k 2t..2t+1, n g), (k 2t+8..2t+9, n g)}
-//   C (16 x 8, fp32):       {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}
+// d[64] += A[64 x 16] * B[16 x 128], A and B K-major in shared memory
+// (128-byte swizzle); the sum is zeroed first when `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64] += A[64 x 16] * B[16 x 128], A in registers, B MN-major in shared
+// memory (128-byte swizzle; the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  wgmma_rs_n64(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wait that retires it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// One consumer's online softmax over a tile's scores s (raw q.k; 64 rows
+// of the warpgroup x kBfBlockK keys), in log2 units: x = s * scale * log2(e).
+// Updates the running max m and normaliser l of the thread's two rows,
+// returns the rescale factors of the accumulator in corr and the
+// unnormalised probabilities, rounded to bf16, as register A fragments.
+// Masked scores (only compared when `edge`) get probability 0, as the
+// TPU kernel's -1e30 gives once a row has a real max (key 0 is never
+// masked, and the first tile holds it).
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kBfBlockK / 2], uint32_t (&pa)[kBfBlockK / 16][4],
+    float (&m)[2], float (&l)[2], float (&corr)[2], float sl2, bool edge,
+    int k0, int skv, int causal, int r0, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kBfBlockK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (edge) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        if (key >= skv || (causal && key > r0 + 8 * (e >> 1)))
+          s[4 * n + e] = -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
+    }
+  }
+  float rs[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    mx[r] = fmaxf(m[r], mx[r] * sl2);  // scale > 0 keeps the order
+    corr[r] = exp2f(m[r] - mx[r]);
+    m[r] = mx[r];
+    rs[r] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < kBfBlockK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * n + e] = exp2f(fmaf(s[4 * n + e], sl2, -mx[e >> 1]));
+      rs[e >> 1] += s[4 * n + e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(kFull, rs[r], 1);
+    rs[r] += __shfl_xor_sync(kFull, rs[r], 2);
+    l[r] = l[r] * corr[r] + rs[r];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBfBlockK / 16; ++kk) {
+    pa[kk][0] = pack_rn(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_rn(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_rn(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_rn(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Accumulator fragments of an m64nNk16 product, per warp w of the
+// warpgroup, with g = lane / 4 and t = lane % 4: d[4 n + e] is row
+// 16 w + g + 8 (e / 2), column 8 n + 2 t + e % 2. The register A fragment of
+// a 16-column slice kk is {d[8 kk + 0, 1], d[8 kk + 2, 3], d[8 kk + 4, 5],
+// d[8 kk + 6, 7]} packed in pairs: rows g, g + 8 at columns 2t, 2t + 8.
 template <int D>
-__global__ void __launch_bounds__(kBfThreads)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kBfThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
                   __nv_bfloat16* __restrict__ out, int sq, int skv,
                   float scale, int causal) {
-  constexpr int kStride = D + 8;  // bf16 per staged row: conflict-free reads
-  constexpr int kSteps = D / 16;  // k-steps of QK^T
-  constexpr int kNd = D / 8;      // n-tiles of the output
-  constexpr int kNk = kBfBlockK / 8;  // n-tiles of the scores
-  __shared__ __align__(16) __nv_bfloat16 ks[kBfBlockK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBfBlockK * kStride];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  using L = BfLayout<D>;
+  constexpr int kChunkQ = kBfBlockQ * 128;  // bytes of a 64-column box
+  constexpr int kChunkK = kBfBlockK * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base, ks = base + L::kK, vs = base + L::kV;
+  // barriers: K full, K empty, V full, V empty (a ring each), q
+  const uint32_t kfull = base + L::kBars, kempty = kfull + 8 * kBfStages;
+  const uint32_t vfull = kempty + 8 * kBfStages;
+  const uint32_t vempty = vfull + 8 * kBfStages;
+  const uint32_t qbar = vempty + 8 * kBfStages;
+  const int tid = threadIdx.x, wg = tid / 128;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBfBlockQ;
-  const int64_t bh = blockIdx.x;
-  const __nv_bfloat16* qb = q + bh * sq * D;
-  const __nv_bfloat16* kb = k + bh * skv * D;
-  const __nv_bfloat16* vb = v + bh * skv * D;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
-
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int st = 0; st < kSteps; ++st) {
-    const int c = st * 16 + 2 * t;
-    const unsigned int* p0 = reinterpret_cast<const unsigned int*>(qb + (int64_t)r0 * D + c);
-    const unsigned int* p1 = reinterpret_cast<const unsigned int*>(qb + (int64_t)r1 * D + c);
-    qa[st][0] = r0 < sq ? __ldg(p0) : 0u;
-    qa[st][1] = r1 < sq ? __ldg(p1) : 0u;
-    qa[st][2] = r0 < sq ? __ldg(p0 + 4) : 0u;  // columns c + 8, c + 9
-    qa[st][3] = r1 < sq ? __ldg(p1 + 4) : 0u;
-  }
-
-  float acc[kNd][4];
-#pragma unroll
-  for (int n = 0; n < kNd; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
-
+  const int bh = blockIdx.x;
   const int kv_end = causal ? min(skv, q0 + kBfBlockQ) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBfBlockK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kBfBlockK * D / 8; idx += kBfThreads) {
-      const int j = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (k0 + j < skv) {
-        kx = __ldg(reinterpret_cast<const uint4*>(kb + (int64_t)(k0 + j) * D + c));
-        vx = __ldg(reinterpret_cast<const uint4*>(vb + (int64_t)(k0 + j) * D + c));
-      }
-      *reinterpret_cast<uint4*>(ks + j * kStride + c) = kx;
-      *reinterpret_cast<uint4*>(vs + j * kStride + c) = vx;
-    }
-    __syncthreads();
+  const int n_tiles = (kv_end + kBfBlockK - 1) / kBfBlockK;
 
-    // S = Q K^T: 16 rows x 64 keys per warp
-    float s[kNk][4];
-#pragma unroll
-    for (int n = 0; n < kNk; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-#pragma unroll
-      for (int n = 0; n < kNk; ++n) {
-        const __nv_bfloat16* kr = ks + (n * 8 + g) * kStride + st * 16 + 2 * t;
-        mma_bf16(s[n], qa[st], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
+  if (tid == 0) {
+    for (int st = 0; st < kBfStages; ++st) {
+      mbar_init(kfull + 8 * st, 1);
+      mbar_init(vfull + 8 * st, 1);
+      mbar_init(kempty + 8 * st, 8);  // one arrival per consumer warp
+      mbar_init(vempty + 8 * st, 8);
     }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // scale, mask, running max (a row's keys sit on the 4 lanes of a group)
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < kNk; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * scale;
-        if (key >= skv) x = -INFINITY;  // past the end: not a key
-        else if (causal && key > row) x = kMasked;
-        s[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
+  if (wg == 0) {  // ---- producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      mbar_expect_tx(qbar, L::kQBytes);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load_3d(qs + c * kChunkQ, &qmap, qbar, c * kBox, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kBfStages, round = j / kBfStages;
+        // a stage's previous tile (j - kBfStages) must be consumed first
+        if (round > 0) mbar_wait(kempty + 8 * st, (round - 1) & 1);
+        mbar_expect_tx(kfull + 8 * st, L::kTileBytes);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load_3d(ks + st * L::kTileBytes + c * kChunkK, &kmap,
+                      kfull + 8 * st, c * kBox, j * kBfBlockK, bh);
+        if (round > 0) mbar_wait(vempty + 8 * st, (round - 1) & 1);
+        mbar_expect_tx(vfull + 8 * st, L::kTileBytes);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load_3d(vs + st * L::kTileBytes + c * kChunkK, &vmap,
+                      vfull + 8 * st, c * kBox, j * kBfBlockK, bh);
       }
     }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    }
-    const float corr0 = expf(m0 - mx0), corr1 = expf(m1 - mx1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kNk; ++n) {
-      s[n][0] = expf(s[n][0] - mx0);
-      s[n][1] = expf(s[n][1] - mx0);
-      s[n][2] = expf(s[n][2] - mx1);
-      s[n][3] = expf(s[n][3] - mx1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
-    }
-    l0 = l0 * corr0 + rs0;
-    l1 = l1 * corr1 + rs1;
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int n = 0; n < kNd; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-
-    // O += P V, with P rounded to bf16 (the TPU kernel's p.astype(v.dtype))
-#pragma unroll
-    for (int kk = 0; kk < kBfBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_rn(s[2 * kk][0], s[2 * kk][1]),
-                              pack_rn(s[2 * kk][2], s[2 * kk][3]),
-                              pack_rn(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_rn(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vr = vs + (kk * 16 + 2 * t) * kStride + g;
-#pragma unroll
-      for (int n = 0; n < kNd; ++n) {
-        const __nv_bfloat16* vc = vr + n * 8;
-        mma_bf16(acc[n], pa, pack_raw(vc[0], vc[kStride]),
-                 pack_raw(vc[8 * kStride], vc[9 * kStride]));
-      }
-    }
+    return;
   }
 
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // ---- consumers: warpgroup cw owns rows q0 + 64 cw .. + 63. Per tile:
+  // S = Q K^T, the softmax, O += P V, each product waited for before the
+  // next step; the two warpgroups drift apart, so one's softmax runs while
+  // the other's products hold the tensor cores.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1, warp = (tid % 128) / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int row_lo = q0 + 64 * cw;
+  const int r0 = row_lo + 16 * warp + lane / 4;  // rows r0 and r0 + 8
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < kNd; ++n) {
-    const int c = n * 8 + 2 * t;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  float s[kBfBlockK / 2];  // the first k-step of each S product zeroes it
+#pragma unroll
+  for (int i = 0; i < kBfBlockK / 2; ++i) s[i] = 0.f;
+  uint32_t pa[kBfBlockK / 16][4];  // P of the tile, bf16 pairs
+  mbar_wait(qbar, 0);
+
+  // Descriptors: one base per operand, advanced by constant offsets in the
+  // address bits (16-byte units). The bases are made opaque before each
+  // product's wgmma.fence, so the compiler keeps no k-step's descriptor
+  // live across the loop and computes none inside the wgmma pipeline stage
+  // (which would serialize the wgmmas).
+  const uint64_t qdesc = smem_desc(qs + cw * 64 * 128, 16, 1024);
+  const uint64_t kdesc = smem_desc(ks, 16, 1024);
+  const uint64_t vdesc = smem_desc(vs, kChunkK, 1024);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kBfStages, parity = (j / kBfStages) & 1;
+    const int k0 = j * kBfBlockK;
+    // S = Q K^T: 64 rows x 128 keys, k-steps of 16 columns of D (32 B a
+    // k-step inside a 64-column box)
+    mbar_wait(kfull + 8 * st, parity);
+    uint64_t qd = qdesc, kd = kdesc + (uint64_t)(st * L::kTileBytes / 16);
+    asm volatile("" : "+l"(qd), "+l"(kd));
+    reg_fence(s);  // every definition of an operand before the fence
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(
+          s, qd + (uint64_t)(((kk / 4) * kChunkQ + (kk % 4) * 32) / 16),
+          kd + (uint64_t)(((kk / 4) * kChunkK + (kk % 4) * 32) / 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kempty + 8 * st);  // this warp is done with K
+
+    const bool edge =  // the diagonal and ragged tiles
+        k0 + kBfBlockK > skv || (causal && k0 + kBfBlockK - 1 > row_lo);
+    float corr[2];
+    softmax_tile(s, pa, m, l, corr, sl2, edge, k0, skv, causal, r0, t);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n + 0] *= corr[0];
+      o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1];
+      o[4 * n + 3] *= corr[1];
+    }
+
+    // O += P V: V MN-major, 16 keys (2 KB) a k-step
+    mbar_wait(vfull + 8 * st, parity);
+    uint64_t vd = vdesc + (uint64_t)(st * L::kTileBytes / 16);
+    asm volatile("" : "+l"(vd));
+    reg_fence(o);
+    reg_fence(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBfBlockK / 16; ++kk)
+      wgmma_rs(o, pa[kk], vd + (uint64_t)(kk * 16 * 128 / 16));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    reg_fence(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(vempty + 8 * st);  // this warp is done with V
+  }
+
+  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  __nv_bfloat16* ob = out + (int64_t)bh * sq * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = 8 * n + 2 * t;
     if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(out + (bh * sq + r0) * D + c) =
-          pack_rn(acc[n][0] / d0, acc[n][1] / d0);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(out + (bh * sq + r1) * D + c) =
-          pack_rn(acc[n][2] / d1, acc[n][3] / d1);
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)r0 * D + c) =
+          pack_rn(o[4 * n + 0] / d0, o[4 * n + 1] / d0);
+    if (r0 + 8 < sq)
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)(r0 + 8) * D + c) =
+          pack_rn(o[4 * n + 2] / d1, o[4 * n + 3] / d1);
   }
 }
 
@@ -410,15 +725,65 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime's lookup (no
+// -lcuda); null when the driver does not have it
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [bh, s, d] bf16 tensor as a 3-D map (dims d, s, bh), boxes of 64
+// columns x 128 rows x 1, 128-byte swizzle; reads past s are zeros
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long bh, int s,
+                       int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {kBox, 128, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                         long long bh, int sq, int skv, float scale, int causal,
                         cudaStream_t stream) {
+  static_assert(kBfBlockQ == 128 && kBfBlockK == 128, "one box shape");
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err = tensor_map(&qmap, q, bh, sq, D);
+  if (err == cudaSuccess) err = tensor_map(&kmap, k, bh, skv, D);
+  if (err == cudaSuccess) err = tensor_map(&vmap, v, bh, skv, D);
+  if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)bh, (unsigned)((sq + kBfBlockQ - 1) / kBfBlockQ));
-  flash_bf16_kernel<D><<<grid, kBfThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      sq, skv, scale, causal);
+  const int smem = BfLayout<D>::kAlloc;
+  auto kernel = flash_bf16_kernel<D>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBfThreads, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, skv, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -431,9 +796,10 @@ extern "C" {
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     long long bh, long long sq, long long skv, int d,
                     int dtype, int causal, float scale, void* stream) {
+  const int block_q = dtype == 0 ? kF32BlockQ : kBfBlockQ;
   if (bh <= 0 || sq <= 0 || skv <= 0 || bh > 0x7fffffffLL ||
       sq > 0x7fffffffLL || skv > 0x7fffffffLL ||
-      (sq + kF32BlockQ - 1) / kF32BlockQ > 65535)
+      (sq + block_q - 1) / block_q > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int isq = (int)sq, iskv = (int)skv;

@@ -2,8 +2,12 @@
 its plain PyTorch version.
 
 The kernel (csrc/flash_attention.cu) replaces the TPU kernel
-repro/kernels/flash_attention.py:flash_attention. It is built at first use
-(kernels/_build.py) and bound with ctypes; a failed build or launch raises.
+repro/kernels/flash_attention.py:flash_attention. Both dtypes walk 128-row q
+tiles. bf16 runs on Hopper's `wgmma`, fed by TMA copies of 128-key K/V
+tiles into a two-stage ring (the tensor maps are encoded per call on the
+host). fp32 runs on fp32 FMAs, with 64-key tiles double-buffered by
+`cp.async`. It is built at first use (kernels/_build.py) and bound with
+ctypes; a failed build or launch raises (there is no fallback).
 
 `flash_attention` launches the kernel on CUDA tensors only;
 `flash_attention_plain` computes the same function in plain PyTorch on any

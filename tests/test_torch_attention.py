@@ -224,3 +224,81 @@ def test_sources_exist_build_raises_without_nvcc_and_counters_stay_zero(
     ops.flash_attention(q, q, q)
     ops.decode_attention(q[:, :, 0], q, q, 3)
     assert (dict(flash.LAUNCHES), dict(decode.LAUNCHES)) == before
+
+
+def _cuda_tiles():
+    """The flash kernel's q tile and key tiles by dtype, read from its
+    source (csrc/flash_attention.cu)."""
+    import re
+    text = flash.LIBRARY.source.read_text()
+    const = {name: int(val) for name, val in
+             re.findall(r"constexpr int (k\w+Block[QK]) = (\d+);", text)}
+    return (const["kBfBlockQ"], const["kF32BlockQ"],
+            {"bfloat16": const["kBfBlockK"], "float32": const["kF32BlockK"]})
+
+
+# Sq = Skv one short of the 128-row q tile, one past it and one past two;
+# and a non-causal Skv past two key tiles that is no multiple of them
+STRADDLE = [(s, s, d, causal) for s in (127, 129, 257) for d in (64, 128)
+            for causal in (True, False)] + [(200, 1000, 64, False),
+                                            (200, 1000, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,d,causal", STRADDLE)
+def test_flash_tile_straddling_shapes_match_jax_oracle(sq, skv, d, causal,
+                                                       dtype):
+    """The shapes chip_smoke.py runs to reach the CUDA kernel's ragged
+    tiles, through ops.flash_attention on the CPU, against the JAX oracle
+    (the Pallas body asserts divisibility and cannot take them)."""
+    (jq, jk, jv), (q, k, v) = _attn_inputs(sq + skv + d, (1, 2, sq, d),
+                                           (1, 2, skv, d), dtype)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert out.shape == (1, 2, sq, d) and out.dtype == q.dtype
+    _assert_close(out, jref.flash_attention_ref(jq, jk, jv, causal=causal),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [256, 512])
+@pytest.mark.parametrize("causal", [True, False])
+def test_pallas_body_on_the_cuda_tiles_matches_port(s, causal, dtype):
+    """The TPU kernel's body in interpret mode walking the CUDA kernel's
+    tiles (a 128-row q tile, the dtype's key tile) against the port's
+    ops.flash_attention on the same inputs."""
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+
+    block_q, _, block_k = _cuda_tiles()
+    (jq, jk, jv), (q, k, v) = _attn_inputs(s + 3, (1, 2, s, 64),
+                                           (1, 2, s, 64), dtype)
+    fold = lambda x: x.reshape(2, s, 64)  # noqa: E731
+    expect = pallas_flash(fold(jq), fold(jk), fold(jv), causal=causal,
+                          block_q=block_q, block_k=block_k[dtype],
+                          interpret=True)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    _assert_close(fold(out), expect, dtype)
+
+
+def test_flash_source_is_the_hopper_design():
+    """The bf16 path issues wgmma and TMA copies into an mbarrier ring; the
+    fp32 path double-buffers with 16-byte cp.async and never names TF32;
+    no float atomics; chip_smoke.py's key tiles are the kernel's."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    text = flash.LIBRARY.source.read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "setmaxnreg", "cuTensorMapEncodeTiled",
+                   "cp.async.cg.shared.global", "__grid_constant__"):
+        assert needle in text, needle
+    assert "tf32" not in text.lower()
+    assert not re.search(r"\batomic[A-Z]\w*\(|\b(atom|red)\.", text)
+    assert "-lcuda" not in " ".join(_build.NVCC_FLAGS)
+    block_q, f32_block_q, block_k = _cuda_tiles()
+    assert block_q == f32_block_q == 128
+    assert chip_smoke.FLASH_BLOCK_K == block_k
