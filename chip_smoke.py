@@ -12,7 +12,8 @@ ends the script with a traceback and a non-zero exit:
                (segment_reduce.cu, flash_attention.cu, decode_attention.cu)
                with nvcc for sm_90a, one nvcc each, all started together
                (each ptxas register / shared-memory report is printed; a
-               ptxas remark that it serialized the wgmmas fails the run).
+               ptxas remark that it serialized the wgmmas, or a spill in
+               any decode instantiation, fails the run).
   3. kernels — the hand kernel against its plain PyTorch version on the
                card, sum and max, fp32 and bf16: the shapes of
                tests/test_kernels.py and the edge cases (an unreached row,
@@ -40,9 +41,11 @@ ends the script with a traceback and a non-zero exit:
                plain / library / bound ms.
   6. attention — the flash and decode kernels against their plain versions
                at the shapes of tests/test_kernels.py, at ragged shapes, at
-               flash shapes that straddle its tiles (STRADDLE) and at the
-               decode edge cases (valid_len 0, 1, S, S + 5), fp32 and
-               bf16, two launches bitwise equal; then the attention entry
+               flash shapes that straddle its tiles (STRADDLE), at the
+               decode edge cases (valid_len 0, 1, S, S + 5) and at decode
+               shapes whose valid_len straddles the launch plan's tile and
+               splits (DECODE_STRADDLE), fp32 and bf16, two launches
+               bitwise equal; then the attention entry
                points (ops.flash_attention, ops.decode_attention) at
                qwen3-4b widths (32 heads, 8 KV heads repeated to 32, head
                dim 128), bf16 and fp32, with their launch counters set to 0
@@ -52,10 +55,13 @@ ends the script with a traceback and a non-zero exit:
                against the plain version (bf16 also row by row, see
                BF16_ROW_TOL; the check is shown to reject a zeroed output,
                for prefill one whose last key tile's V is zeroed (a dropped
-               ring stage), for decode one over half the cache), and kernel
-               / plain / SDPA / bound ms (SDPA is the yardstick only; the
-               port never calls it), SDPA also under each backend that
-               takes the call, with the kernels its default dispatch ran.
+               ring stage), for decode one over half the cache and one
+               without the last split's slots), and kernel / plain / SDPA /
+               bound ms (SDPA is the yardstick only; the port never calls
+               it), SDPA also under each backend that takes the call, with
+               the kernels its default dispatch ran; decode prints its
+               launch plan and is also timed at other n_split
+               (DECODE_SPLITS).
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phase 4 made at that shape
@@ -72,8 +78,10 @@ beside it. It imports nothing of JAX and nothing of `repro`.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -85,6 +93,7 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense, H100 SXM
+H100_SMS = 132               # streaming multiprocessors, H100 SXM
 SERVE_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_gnn_distributed.py:38
 # A sum of n unit-normal terms taken in two orders (the kernel's layout
 # order, the plain version's atomics) differs by O(sqrt(n)) ulps of the
@@ -128,6 +137,16 @@ FLASH_BLOCK_K = {"bfloat16": 128, "float32": 64}
 STRADDLE = [(2, s, s, d, causal) for s in (127, 129, 257) for d in (64, 128)
             for causal in (True, False)] + [(4, 200, 1000, 64, False),
                                             (4, 200, 1000, 128, False)]
+# the decode kernel's tile by dtype and head dim: 16 KB of K
+# (csrc/decode_attention.cu kTile, decode_attention._launch_plan)
+DECODE_TILE = {"bfloat16": {64: 128, 128: 64}, "float32": {64: 64, 128: 32}}
+# decode shapes (bh, S, d) whose valid_len sweep straddles the tile and the
+# splits of the launch plan (`decode_straddle_valids`): S a multiple of no
+# tile; one bh, three, and one past the 256 of the main path
+DECODE_STRADDLE = [(bh, 4133, d) for bh in (1, 3, 257) for d in (64, 128)]
+# n_split values the main-path decode shape is also timed at, beside the
+# plan's
+DECODE_SPLITS = (1, 2, 4, 8, 16, 33)
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -174,6 +193,11 @@ def phase_build(libraries) -> None:
         # kernel stays right but loses its overlap, so the build fails here
         serialized = [ln for ln in log if "serialized" in ln]
         assert not serialized, f"{lib.source.name}: {serialized}"
+        # the decode kernel keeps every instantiation free of spills
+        if lib.name == "decode_attention":
+            spills = [ln.strip() for ln in log
+                      if re.search(r"\b[1-9]\d* bytes spill", ln)]
+            assert not spills, f"{lib.source.name}: {spills}"
 
 
 # ---------------------------------------------------------------- phase 3
@@ -649,7 +673,41 @@ def attention_checks(torch, flash, decode) -> list:
             mean = v.float().mean(dim=1).to(dtype)
             _hold_attn(torch, f"decode {name_t} {bh}x{s}x{d} valid=0 vs mean",
                        decode.decode_attention(q, k, v, 0), mean, name_t, s)
+        for bh, s, d in DECODE_STRADDLE:
+            plan = decode._launch_plan(bh, s, d, dtype,
+                                       decode._sm_count(torch.device("cuda")))
+            assert plan.tile == DECODE_TILE[name_t][d], plan
+            q, k, v = _attn_inputs(torch, (bh, d), (bh, s, d), dtype,
+                                   bh + s + d)
+            mean = v.float().mean(dim=1).to(dtype)
+            for valid in decode_straddle_valids(plan, s):
+                out = decode.decode_attention(q, k, v, valid)
+                again = decode.decode_attention(
+                    q, k, v, torch.tensor(valid, device="cuda"))
+                assert torch.equal(out, again), "decode: repeat differs"
+                n = decode.walked(valid, s)
+                name = (f"decode straddle {name_t} {bh}x{s}x{d} valid={valid}"
+                        f" (tile {plan.tile}, n_split {plan.n_split})")
+                err, rel, tol = _hold_attn(
+                    torch, name, out,
+                    decode.decode_attention_plain(q, k, v, valid), name_t, n)
+                if valid <= 0:
+                    _hold_attn(torch, f"{name} vs mean", out, mean, name_t, s)
+                rows.append({"kernel": "decode", "shape": name, "err": err,
+                             "row_rel_err": rel, "tol": tol})
+                say(f"[attention] {name}: max |err| {err:.3g} row-relative "
+                    f"{rel:.3g} tol {tol}")
     return rows
+
+
+def decode_straddle_valids(plan, s: int) -> list:
+    """valid_len values around the plan's tile and split boundaries: 1, a
+    tile -1 / +1, n_split tiles -1 / +1, fewer slots than splits, 0 and -3
+    (the mean of v), S and S + 5."""
+    t, ns = plan.tile, plan.n_split
+    vals = {1, t - 1, t + 1, ns * t - 1, ns * t + 1, max(ns - 1, 1), 0, -3,
+            s, s + 5}
+    return sorted(x for x in vals if x <= s + 5)
 
 
 def _attn_bound(dtype, bh, sq, skv, d, *, causal=False, valid=None):
@@ -757,6 +815,13 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
         qf, kf, vf = (q.reshape(db * h, d), k.reshape(db * h, ds, d),
                       v.reshape(db * h, ds, d))
         valid_t = torch.tensor(valid, dtype=torch.int32, device="cuda")
+        plan = decode._launch_plan(db * h, ds, d, dtype,
+                                   decode._sm_count(q.device))
+        assert plan.tile == DECODE_TILE[name_t][d] and plan.n_split > 1, plan
+        say(f"[attention] decode {name_t} plan: tile {plan.tile} slots, "
+            f"{plan.stages} stages, n_split {plan.n_split}, grid "
+            f"{plan.grid} x {decode.THREADS} threads, {plan.smem} B shared "
+            f"memory, workspace {plan.workspace} floats")
         again = decode.decode_attention(qf, kf, vf, valid_t)
         assert torch.equal(again, out.reshape(db * h, d)), \
             "decode: repeat differs"
@@ -769,9 +834,18 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
         _rejects(torch, f"decode {name_t} half the cache",
                  decode.decode_attention_plain(qf, kf, vf, valid // 2),
                  plain, name_t, valid)
+        # a lost split: the last one's share of the slots never merged
+        last = int(decode.split_range(valid, plan.tile, plan.n_split,
+                                      plan.n_split - 1)[0])
+        _rejects(torch, f"decode {name_t} last split dropped (valid {last})",
+                 decode.decode_attention_plain(qf, kf, vf, last), plain,
+                 name_t, valid)
         del plain, again
         ks, vs = k[:, :, :valid], v[:, :, :valid]
         q4 = q[:, :, None]
+        dec_backends = sdpa_backends(torch, q4, ks, vs, is_causal=False)
+        say(f"[attention] sdpa backends decode {name_t} q [{db},{h},1,{d}] "
+            f"cache [{db},{h},{valid},{d}]: {json.dumps(dec_backends)}")
         lib_out = F.scaled_dot_product_attention(q4, ks, vs)[:, :, 0]
         lib_err = _max_abs_err(torch, lib_out, out)
         del lib_out
@@ -781,6 +855,12 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
             qf, kf, vf, valid_t), 5)
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, ks, vs), 20)
+        split_ms = {ns: _time_ms(torch, lambda ns=ns: decode._launch(
+            qf, kf, vf, valid_t, _with_split(plan, db * h, d, ns)), 20)
+            for ns in DECODE_SPLITS}
+        say(f"[attention] decode {name_t} ms by n_split (plan's "
+            f"{plan.n_split}: {ms:.4f}): "
+            + ", ".join(f"{ns} {t:.4f}" for ns, t in split_ms.items()))
         bound_ms, bound_by = _attn_bound(name_t, db * h, 1, ds, d,
                                          valid=valid)
         entries.append(_attn_entry(
@@ -789,7 +869,10 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
             "src/repro/kernels/decode_attention.py:26", launches, err, ms,
             plain_ms, bound_ms, bound_by, library_ms))
         results.append(dict(entries[-1], tol=tol, row_rel_err=rel,
-                            library_max_abs_err=lib_err))
+                            library_max_abs_err=lib_err,
+                            sdpa_backends=dec_backends,
+                            plan=dataclasses.asdict(plan),
+                            ms_by_n_split=split_ms))
         say(f"[attention] decode {name_t} q [{db},{h},{d}] cache "
             f"[{db},{h},{ds},{d}] valid {valid}: launches {launches}, err "
             f"{err:.3g} (tol {tol}), row-relative {rel:.3g}, ms {ms:.4f} "
@@ -801,16 +884,23 @@ def phase_attention(torch, ops, flash, decode) -> tuple[list, list]:
     return entries, checks + results
 
 
-def sdpa_backends(torch, q, k, v) -> dict:
-    """The yardstick named: SDPA's causal call on q, k, v timed under each
-    backend `sdpa_kernel` lets run (ms, or why it would not run), and the
-    device kernels the default dispatch launched (torch.profiler)."""
+def _with_split(plan, bh: int, d: int, n_split: int):
+    """The decode plan with another n_split (grid and workspace to match)."""
+    return dataclasses.replace(
+        plan, n_split=n_split, grid=bh * n_split,
+        workspace=bh * n_split * (d + 2) if n_split > 1 else 0)
+
+
+def sdpa_backends(torch, q, k, v, is_causal=True) -> dict:
+    """The yardstick named: SDPA's call on q, k, v timed under each backend
+    `sdpa_kernel` lets run (ms, or why it would not run), and the device
+    kernels the default dispatch launched (torch.profiler)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.profiler import ProfilerActivity, profile
 
     F = torch.nn.functional
     call = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=True)
+        q, k, v, is_causal=is_causal)
     out = {}
     for backend in (SDPBackend.FLASH_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION,

@@ -302,3 +302,191 @@ def test_flash_source_is_the_hopper_design():
     block_q, f32_block_q, block_k = _cuda_tiles()
     assert block_q == f32_block_q == 128
     assert chip_smoke.FLASH_BLOCK_K == block_k
+
+
+# ---- the split decode kernel: its launch plan and its arithmetic
+
+PLAN_BH = (1, 3, 256, 257)
+PLAN_S = (1, 5, 63, 64, 65, 1000, 32768)
+PLAN_SMS = (132, 114, 8)
+SM_SMEM = 233_472      # shared memory of one H100 SM (228 KB)
+BLOCK_RESERVED = 1024  # what the card keeps of it for each block
+
+
+def _covers_once(n, tile, n_split):
+    """split_range over every split covers [0, n) exactly once, in split
+    order, cut on tile boundaries (n an array of walked-slot counts)."""
+    at = np.zeros_like(n)
+    for split in range(n_split):
+        lo, hi = decode.split_range(n, tile, n_split, split)
+        assert np.array_equal(lo, at), split
+        assert np.all(hi >= lo) and np.all(lo % tile == 0)
+        assert np.all((hi % tile == 0) | (hi == n))
+        at = hi
+    assert np.array_equal(at, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", PLAN_S)
+def test_decode_launch_plan_sweep(s, d, dtype):
+    """The plan over (BH, S, D, dtype, SM count): n_split >= 1, shared
+    memory within the H100's per-block limit and equal to the kernel's
+    layout, a ring of at least 3 stages, the grid within its limit, the
+    workspace the wrapper allocates of the plan's size, and the device's
+    range rule covering [0, n) exactly once for every n in 1..S and for
+    valid_len 0, -3 and S + 5."""
+    b = dtype.itemsize
+    for bh in PLAN_BH:
+        for sms in PLAN_SMS:
+            plan = decode._launch_plan(bh, s, d, dtype, sms)
+            assert 1 <= plan.n_split <= decode.MAX_SPLIT
+            assert plan.tile * d * b == decode.TILE_BYTES
+            assert plan.stages >= 3
+            assert plan.smem == decode._smem_bytes(plan.tile, plan.stages,
+                                                   d, b)
+            assert plan.smem <= decode.SMEM_LIMIT
+            # the plan's blocks share an SM
+            assert (decode.BLOCKS_PER_SM * (plan.smem + BLOCK_RESERVED)
+                    <= SM_SMEM)
+            assert plan.grid == bh * plan.n_split <= decode.GRID_LIMIT
+            work = decode._workspace(plan, "cpu")
+            if plan.n_split == 1:
+                assert work is None and plan.workspace == 0
+            else:
+                assert work.dtype == torch.float32
+                assert work.numel() == plan.workspace == (
+                    bh * plan.n_split * (d + 2))
+            ns = [decode.walked(v, s) for v in (0, -3, s + 5)]
+            assert ns == [s, s, s]
+            _covers_once(np.arange(1, s + 1), plan.tile, plan.n_split)
+
+
+def test_decode_launch_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="head dim"):
+        decode._launch_plan(4, 64, 96, torch.float32, 132)
+    with pytest.raises(TypeError, match="dtype"):
+        decode._launch_plan(4, 64, 64, torch.float16, 132)
+    with pytest.raises(ValueError, match="empty"):
+        decode._launch_plan(0, 64, 64, torch.float32, 132)
+    with pytest.raises(ValueError, match="exceed"):
+        decode._launch_plan(2**30, 1 << 20, 64, torch.float32, 2**30)
+
+
+def _split_decode_emulation(q, k, v, valid, tile, n_split):
+    """The kernel's arithmetic in plain torch, test-only: each split folds
+    its tiles (split_range) in order with an online softmax (max,
+    normaliser, accumulator in fp32; p rounded to the cache's dtype before
+    PV), an empty split leaves (-1e30, 0, 0), and the partials merge in
+    split order into acc / max(l, 1e-30) in q's dtype."""
+    bh, s, d = k.shape
+    n = decode.walked(valid, s)
+    parts = []
+    for split in range(n_split):
+        lo, hi = (int(x) for x in decode.split_range(n, tile, n_split, split))
+        m = torch.full((bh,), -1e30)
+        l, acc = torch.zeros(bh), torch.zeros(bh, d)
+        for t0 in range(lo, hi, tile):
+            kt, vt = k[:, t0:min(t0 + tile, hi)], v[:, t0:min(t0 + tile, hi)]
+            sc = torch.einsum("bd,btd->bt", q.float(), kt.float()) / np.sqrt(d)
+            if valid < 1:
+                sc = torch.full_like(sc, -1e30)
+            mx = torch.maximum(m, sc.amax(dim=1))
+            corr = torch.exp(m - mx)
+            p = torch.exp(sc - mx[:, None])
+            l = l * corr + p.sum(dim=1)
+            acc = acc * corr[:, None] + torch.einsum(
+                "bt,btd->bd", p.to(q.dtype).float(), vt.float())
+            m = mx
+        parts.append((m, l, acc))
+    big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    lsum, out = torch.zeros(bh), torch.zeros(bh, d)
+    for m, l, acc in parts:
+        f = torch.exp(m - big)
+        lsum = lsum + l * f
+        out = out + acc * f[:, None]
+    return (out / lsum.clamp_min(1e-30)[:, None]).to(q.dtype)
+
+
+# (tile, n_split) on a 1000-slot cache: small ones, and the plan at BH 3,
+# D 64 bf16 on an H100
+SPLIT_CONFIGS = [(16, 4), (64, 5), "plan"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("config", SPLIT_CONFIGS, ids=str)
+@pytest.mark.parametrize("case", ["zero", "one", "fewer_than_splits",
+                                  "tile-1", "tile+1", "splits*tile-1",
+                                  "splits*tile+1", "full", "past_end"])
+def test_decode_split_emulation_matches_jax(case, config, dtype):
+    """Split partials and the fixed-order merge, emulated in plain torch,
+    against the JAX oracle and the Pallas body in interpret mode, at
+    valid_len straddling the tile and the splits, 0 (the mean of v) and
+    past S; and the package's plain version (the oracle on the card)."""
+    b, h, s, d = 1, 3, 1000, 64
+    tile, n_split = config if config != "plan" else (
+        lambda p: (p.tile, p.n_split))(decode._launch_plan(
+            b * h, s, d, torch.bfloat16, 132))
+    assert n_split > 1
+    valid = {"zero": 0, "one": 1, "fewer_than_splits": n_split - 1,
+             "tile-1": tile - 1, "tile+1": tile + 1,
+             "splits*tile-1": n_split * tile - 1,
+             "splits*tile+1": n_split * tile + 1, "full": s,
+             "past_end": s + 5}[case]
+    (jq, jk, jv), (q, k, v) = _attn_inputs(valid + tile + 31, (b, h, d),
+                                           (b, h, s, d), dtype)
+    out = _split_decode_emulation(q.reshape(b * h, d),
+                                  k.reshape(b * h, s, d),
+                                  v.reshape(b * h, s, d), valid, tile,
+                                  n_split).reshape(b, h, d)
+    _assert_close(out, jref.decode_attention_ref(jq, jk, jv, valid), dtype)
+    _assert_close(out, jops.decode_attention(jq, jk, jv, jnp.asarray(valid),
+                                             interpret=True), dtype)
+    _assert_close(out, ops.decode_attention(q, k, v, valid).float().numpy(),
+                  dtype)
+
+
+def test_decode_source_is_the_split_design():
+    """The kernel streams K and V with 1-D bulk async copies into an
+    mbarrier ring and merges its splits in a second pass; no float
+    atomics, no TF32; its constants and shared-memory layout are the
+    plan's; chip_smoke.py's decode constants agree with the plan, whose
+    main-path launch splits each bh's cache."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    text = decode.LIBRARY.source.read_text()
+    for needle in ("cp.async.bulk.shared::cluster.global.mbarrier",
+                   "mbarrier.try_wait", "mbarrier.arrive.expect_tx",
+                   "merge_kernel", "fence.mbarrier_init"):
+        assert needle in text, needle
+    assert "tf32" not in text.lower()
+    assert not re.search(r"\batomic[A-Z]\w*\(|\b(atom|red)\.", text)
+    const = {name: int(val) for name, val in
+             re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    assert const["kConsumers"] == decode.CONSUMERS
+    assert const["kMaxStages"] >= decode.STAGES
+    assert const["kSmemLimit"] == decode.SMEM_LIMIT
+    assert const["kMaxSplit"] >= decode.MAX_SPLIT
+    assert "return 2 * stages * tile * d * b + kStates * (d + 2) * 4 + " \
+        "2 * stages * 8;" in text
+    assert const["kTileBytes"] == decode.TILE_BYTES
+    sms = chip_smoke.H100_SMS
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        for d in decode.HEAD_DIMS:
+            main = decode._launch_plan(1, 1, d, dtype, sms)
+            assert chip_smoke.DECODE_TILE[name][d] == main.tile
+        for bh, s, d in chip_smoke.DECODE_STRADDLE:
+            plan = decode._launch_plan(bh, s, d, dtype, sms)
+            assert s % plan.tile and plan.n_split * plan.tile + 1 <= s
+    db, h = chip_smoke.DECODE["batch"], chip_smoke.QWEN3_4B["num_heads"]
+    main = decode._launch_plan(db * h, chip_smoke.DECODE["cache"],
+                               chip_smoke.QWEN3_4B["head_dim"],
+                               torch.bfloat16, sms)
+    assert main.n_split > 1
