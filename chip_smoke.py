@@ -62,15 +62,39 @@ ends the script with a traceback and a non-zero exit:
                the kernels its default dispatch ran; decode prints its
                launch plan and is also timed at other n_split
                (DECODE_SPLITS).
+  7. train   — full-batch training at phase 4's widths (OR 1.0, hep100,
+               k=4, 512, 3 layers, 16 classes), 5 steps, on expandable
+               allocator segments (`gnn_train.TRAIN_ALLOC_CONF`; it comes
+               last so that phases 1-6 run on the default fixed segments):
+               GAT tiled through the `gnn_train` entry point, then GAT
+               scatter, SAGE tiled and SAGE scatter through the trainer API
+               on the same book, the launch counters set to 0 before and
+               read after each run.
+               Every tiled run launched the kernel for every aggregate
+               (`expected_launches`), scatter runs never; tiled == scatter
+               within LOSS_TOL at every step (the check shown rejecting a
+               trajectory shifted by one step); per-step losses, warm step
+               seconds (median of steps 2-5), peak device memory and
+               launches per step; whether a 3-step rerun repeats the losses
+               bit for bit (reported, not asserted); a small run on the card
+               against the same run on the CPU; the max aggregate's backward
+               on the card (kernel max and tie count) bit for bit against
+               its plain version on an input with ties.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phase 4 made at that shape
+entry per shape of phase 5 with the launches phases 4 and 7 made at that
+shape (phase 7 fails if it launched the kernel at a shape phase 4 did not)
 and one per (attention kernel, shape, dtype) of phase 6, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Per-shape results also go to chiprun_out/chip_smoke_kernels.json.
+Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
+training results to chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
-a torch.profiler pass over the GAT main path's layer-wise inference.
+a torch.profiler pass over the GAT main path's layer-wise inference and
+one over a GAT tiled training step at the training phase's widths.
+`python3 chip_smoke.py --aggregate-host` runs only the device and build
+phases and `phase_aggregate_host`: the host time a call and a served batch
+of `ops.aggregate`'s autograd Function under inference_mode.
 
 It exits non-zero when no GPU is visible and when `src/repro_torch` is not
 beside it. It imports nothing of JAX and nothing of `repro`.
@@ -78,6 +102,7 @@ beside it. It imports nothing of JAX and nothing of `repro`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -147,6 +172,20 @@ DECODE_STRADDLE = [(bh, 4133, d) for bh in (1, 3, 257) for d in (64, 128)]
 # n_split values the main-path decode shape is also timed at, beside the
 # plan's
 DECODE_SPLITS = (1, 2, 4, 8, 16, 33)
+# the training phase: the serving widths, 5 steps; |loss| per step within
+# LOSS_TOL (tests/test_gnn_distributed.py:53) between the kernel and the
+# scatter path, and between the card and the CPU. The step size is the
+# default of Adam's paper (Kingma & Ba, ICLR 2015, Algorithm 1): at the
+# reference trainer's 1e-2 the loss diverges here (2.8 -> 142 in 5 steps),
+# and a diverging run amplifies last-bit differences tenfold a step
+TRAIN_LR = "1e-3"
+TRAIN_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
+               "--k", "4", "--features", "512", "--hidden", "512",
+               "--layers", "3", "--classes", "16", "--epochs", "5",
+               "--lr", TRAIN_LR, "--device", "cuda"]
+TRAIN_STEPS = 5
+REPEAT_STEPS = 3
+LOSS_TOL = 1e-4
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -436,12 +475,11 @@ def phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod) -> list:
 
 
 # ---------------------------------------------------------------- phase 4
-def serve_once(torch, spmm, gnn_serve, argv, label, seen=None):
-    """One gnn_serve run with the launch counters set to 0 just before it
-    and read just after. With `seen`, the local_dst and dtype of the first
+@contextlib.contextmanager
+def recording(spmm, seen=None):
+    """The launch counters set to 0 on entry; the dict yielded holds them
+    as read on exit. With `seen`, the local_dst and dtype of the first
     launch at each (combiner, rows, F) are kept there for phase 5."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     launch = spmm.segment_spmm
 
     def keep_inputs(messages, local_dst, num_rows, *, combiner="sum", **kw):
@@ -453,14 +491,23 @@ def serve_once(torch, spmm, gnn_serve, argv, label, seen=None):
     if seen is not None:
         spmm.segment_spmm = keep_inputs
     spmm.LAUNCHES.clear()
-    t0 = time.perf_counter()
+    launches = {}
     try:
-        with torch.inference_mode():
-            out = gnn_serve.run(argv)
+        yield launches
     finally:
         spmm.segment_spmm = launch
+        launches.update(spmm.LAUNCHES)
+
+
+def serve_once(torch, spmm, gnn_serve, argv, label, seen=None):
+    """One gnn_serve run with the launch counters set to 0 just before it
+    and read just after (`recording`)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(spmm, seen) as launches, torch.inference_mode():
+        out = gnn_serve.run(argv)
     wall = time.perf_counter() - t0
-    launches = dict(spmm.LAUNCHES)
     rep = out.report
     peak = torch.cuda.max_memory_allocated()
     for e in out.embeddings:
@@ -527,6 +574,213 @@ def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict]:
         _hold(a, b, f"small gat layer {li}, card vs cpu")
     _hold(gpu.report.logits, cpu.report.logits, "small gat logits, card vs cpu")
     return main_launches, seen
+
+
+# ---------------------------------------------------------------- phase 7
+def expandable_segments(torch, gnn_train) -> None:
+    """Switch the caching allocator to training's setting (what
+    `gnn_train.main` sets for its process) for the allocations that
+    follow; the segments cached so far are returned first."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings(gnn_train.TRAIN_ALLOC_CONF)
+    say(f"[train] allocator: {gnn_train.TRAIN_ALLOC_CONF} from here on")
+
+
+def hold_losses(a, b, what) -> float:
+    """Two loss trajectories of one length agree within LOSS_TOL at every
+    step; returns the largest |difference|."""
+    assert len(a) == len(b) > 0, f"{what}: lengths {len(a)}, {len(b)}"
+    diff = max(abs(x - y) for x, y in zip(a, b))
+    assert np.isfinite(a).all() and np.isfinite(b).all() and diff < LOSS_TOL, (
+        f"{what}: max |dloss| {diff:.3g} (limit {LOSS_TOL}): {a} vs {b}")
+    return diff
+
+
+def expected_launches(spec, steps: int) -> dict:
+    """The segment-reduce launches of `steps` tiled training steps, by
+    (combiner, F): per layer, sage/gcn one sum at the layer's input width;
+    gat the softmax shift's max (F = heads) and two sums (the denominator,
+    F = heads, and the numerator, F = heads x head dim). The backward
+    launches none: a sum's transpose is a gather, and the shift takes no
+    gradient."""
+    out = {}
+    for dims in spec.aggregate_dims("halo"):
+        combiners = (["max"] + ["sum"] * (len(dims) - 1)
+                     if spec.model == "gat" else ["sum"] * len(dims))
+        for c, f in zip(combiners, dims):
+            out[(c, f)] = out.get((c, f), 0) + steps
+    return out
+
+
+def _by_combiner_width(launches) -> dict:
+    out = {}
+    for (c, _, f), n in launches.items():
+        out[(c, f)] = out.get((c, f), 0) + n
+    return out
+
+
+def train_steps(torch, spmm, tr, steps):
+    """`steps` steps of trainer `tr` with the launch counters set to 0 just
+    before and read just after; host clock around each step (each ends in
+    a sync: the loss is read). Returns losses, seconds, launches, peak."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    with recording(spmm) as launches:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(tr.train_step())
+            seconds.append(time.perf_counter() - t0)
+    return losses, seconds, launches, torch.cuda.max_memory_allocated()
+
+
+def max_backward_check(torch, spmm, ops, tiling) -> dict:
+    """The max aggregate's backward on the card (forward max and tie count
+    by the kernel) against the same backward on the CPU (both by the plain
+    version), bit for bit, on an input with ties and dropped edges."""
+    rng = np.random.default_rng(11)
+    e, v, f = 3000, 700, 4
+    dst = rng.integers(0, v, e)
+    msgs = rng.integers(0, 3, (e, f)).astype(np.float32)  # ties everywhere
+    valid = rng.random(e) < 0.9
+    order, ldst, rows = tiling.prepare_tiled_edges(dst, v, valid=valid)
+    g = rng.normal(size=(v, f)).astype(np.float32)
+
+    def grad_on(device):
+        m = torch.tensor(msgs, device=device, requires_grad=True)
+        out = ops.aggregate(
+            m, torch.as_tensor(dst, device=device), v,
+            edge_order=torch.as_tensor(order, dtype=torch.int64,
+                                       device=device),
+            local_dst=torch.as_tensor(ldst, device=device),
+            backend="tiled", reduce="max")
+        (gm,) = torch.autograd.grad(out, m, torch.as_tensor(g, device=device))
+        return gm
+
+    with recording(spmm) as launches:
+        card = grad_on("cuda").cpu()
+    assert launches == {("max", rows, f): 1, ("sum", rows, f): 1}, launches
+    plain = grad_on("cpu")
+    assert torch.equal(card, plain), "max backward: card != plain version"
+    # the check has ties to split: rows whose max two or more kept edges hit
+    keep = np.zeros((v, f), np.int64)
+    top = np.full((v, f), -np.inf, np.float32)
+    np.maximum.at(top, dst[valid], msgs[valid])
+    np.add.at(keep, dst[valid], msgs[valid] == top[dst[valid]])
+    tied = int((keep > 1).sum())
+    assert tied > 0 and int((plain != 0).sum()) > 0
+    say(f"[train] max backward (E={e}, rows={v}, F={f}, {tied} tied "
+        f"(row, column) maxima, ties of {np.unique(keep[keep > 1]).tolist()} "
+        f"edges, {int((~valid).sum())} dropped edges): card == plain "
+        f"version bit for bit")
+    return {"edges": e, "rows": v, "F": f, "tied": tied, "bitwise": True}
+
+
+def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
+                optim) -> tuple[dict, dict]:
+    """Full-batch training at full width. GAT on the tiled backend through
+    the `gnn_train` entry point, then GAT on scatter and SAGE on both
+    through the trainer API on the same book and blocks, 5 steps each, the
+    launch counters set to 0 before and read after each run. Holds every
+    tiled run's launches to `expected_launches` (every aggregate through
+    the kernel), tiled == scatter at every step, the card == the CPU at a
+    small size, and the max backward on the card == its plain version;
+    reports whether a 3-step rerun repeats the losses bit for bit. Returns
+    the results and the launches of each tiled run."""
+    runs, main_launches = {}, {}
+
+    def record(key, spec, losses, seconds, launches, peak, wall):
+        model, backend = key
+        warm = float(np.median(seconds[1:]))
+        per_step = {f"{c} F={f}": n / len(losses)
+                    for (c, f), n in sorted(_by_combiner_width(
+                        launches).items())}
+        runs[key] = {
+            "losses": losses, "step_seconds": seconds,
+            "warm_step_seconds": warm, "peak_bytes": peak,
+            "launches_per_step": per_step, "wall_seconds": wall}
+        say(f"[train] {model} {backend}: losses {losses}, step seconds "
+            f"{[round(t, 4) for t in seconds]}, warm (median of steps "
+            f"2-{len(seconds)}) {warm:.4f}s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, segment-reduce launches per step "
+            f"{per_step}, wall {wall:.1f}s")
+        if backend == "scatter":
+            assert not launches, f"{model} scatter launched {launches}"
+            return
+        want = expected_launches(spec, len(losses))
+        rows = {r for (_, r, _) in launches}
+        assert _by_combiner_width(launches) == want and len(rows) == 1, (
+            f"{model} tiled: launches {launches}, expected {want}")
+        main_launches[f"train {model}"] = launches
+
+    expandable_segments(torch, gnn_train)
+    t0 = time.perf_counter()
+    with recording(spmm) as launches:
+        run = gnn_train.run(TRAIN_WIDTH + ["--model", "gat",
+                                           "--agg-backend", "tiled"])
+    base = run.trainer  # its book and blocks serve the runs below
+    sage = dataclasses.replace(base.spec, model="sage")
+    specs = {("gat", "tiled"): base.spec,
+             ("gat", "scatter"): dataclasses.replace(base.spec,
+                                                     agg_backend="scatter"),
+             ("sage", "tiled"): sage,
+             ("sage", "scatter"): dataclasses.replace(sage,
+                                                      agg_backend="scatter")}
+    record(("gat", "tiled"), base.spec, run.losses, run.step_seconds,
+           launches, run.peak_memory, time.perf_counter() - t0)
+    logits = base.forward_logits_global()
+    assert logits.shape == (run.graph.num_vertices, 16)
+    assert np.isfinite(logits).all()
+    del run, logits
+
+    def fresh(spec):
+        params = models.init_params(spec, seed=0, device=base.blocks.x.device)
+        return fullbatch.FullBatchTrainer(
+            spec=spec, book=base.book, blocks=base.blocks,
+            sync_mode=base.sync_mode, params=params,
+            opt_state=optim.adam_init(params), lr=base.lr)
+
+    for key in [("gat", "scatter"), ("sage", "tiled"), ("sage", "scatter")]:
+        t0 = time.perf_counter()
+        out = train_steps(torch, spmm, fresh(specs[key]), TRAIN_STEPS)
+        record(key, specs[key], *out, time.perf_counter() - t0)
+
+    for model in ("gat", "sage"):
+        a, b = runs[model, "tiled"]["losses"], runs[model, "scatter"]["losses"]
+        diff = hold_losses(a, b, f"{model} tiled vs scatter")
+        runs[model, "tiled"]["max_abs_dloss_vs_scatter"] = diff
+        say(f"[train] {model} tiled vs scatter: max |dloss| {diff:.3g} over "
+            f"{len(a)} steps (limit {LOSS_TOL})")
+    a, b = runs["gat", "tiled"]["losses"], runs["gat", "scatter"]["losses"]
+    try:
+        hold_losses(a[1:], b[:-1], "shifted by one step")
+    except AssertionError:
+        say("[train] the check rejects the tiled trajectory shifted by one "
+            "step against scatter's")
+    else:
+        raise AssertionError("the loss check passes a shifted trajectory")
+
+    # determinism, reported: a 3-step rerun against the run's first steps
+    for key, spec in specs.items():
+        again = train_steps(torch, spmm, fresh(spec), REPEAT_STEPS)[0]
+        same = again == runs[key]["losses"][:REPEAT_STEPS]
+        runs[key]["rerun_bitwise_equal"] = same
+        say(f"[train] {key[0]} {key[1]}: two {REPEAT_STEPS}-step runs "
+            f"{'bitwise equal' if same else 'differ'}: {again}")
+    del base
+
+    small = ["--graph", "OR", "--scale", "0.02", "--k", "4", "--model", "gat",
+             "--agg-backend", "tiled", "--features", "32", "--hidden", "32",
+             "--layers", "3", "--epochs", "5"]
+    card = gnn_train.run(small + ["--device", "cuda"]).losses
+    cpu = gnn_train.run(small + ["--device", "cpu"]).losses
+    diff = hold_losses(card, cpu, "small gat, card vs cpu")
+    say(f"[train] small gat (OR 0.02, width 32), card vs cpu: max |dloss| "
+        f"{diff:.3g}")
+    results = {f"{m} {b}": r for (m, b), r in runs.items()}
+    results["small_card_vs_cpu_max_abs_dloss"] = diff
+    results["max_backward"] = max_backward_check(torch, spmm, ops, tiling)
+    return results, main_launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -930,33 +1184,141 @@ def _attn_entry(name, source, replaces, launches, err, ms, plain_ms,
 
 
 # --------------------------------------------------------------- profile
-def phase_profile(torch, gnn_serve) -> None:
-    """`--profile`: the GAT main path's layer-wise pass, run again warm,
-    then once under torch.profiler. Prints warm layer seconds, device time
-    by op, and the device idle share of the profiled pass (1 - summed
-    kernel time / wall; one stream, so kernels do not overlap)."""
+def _profiled(torch, fn, what: str) -> None:
+    """Run `fn` once under torch.profiler; print device time by op and the
+    device idle share (1 - summed kernel time / wall; one stream, so
+    kernels do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        out = gnn_serve.run(FULL_WIDTH + ["--requests", "1", "--model",
-                                          "gat", "--agg-backend", "tiled"])
-        eng = out.inference
-        eng.run()
-        say(f"[profile] warm layer seconds {eng.layer_times}")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.run()
-            wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     avg = prof.key_averages()
     say(avg.table(sort_by="self_device_time_total", row_limit=20))
     # device-side events only (kernels, copies, sets): a CPU op's own
     # device time would count its kernels a second time
     busy_us = sum(e.self_device_time_total for e in avg
                   if e.device_type == DeviceType.CUDA)
-    say(f"[profile] wall {wall * 1e3:.1f} ms, device busy "
+    say(f"[profile] {what}: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share {1 - busy_us / 1e6 / wall:.3f}")
+
+
+def phase_profile(torch, gnn_serve, gnn_train) -> None:
+    """`--profile`: the GAT main path's layer-wise pass, run again warm,
+    then once under torch.profiler; then a GAT tiled training step at the
+    training phase's widths, after two warm steps, once under the
+    profiler. Prints warm seconds, device time by op, and each profiled
+    run's device idle share."""
+    with torch.inference_mode():
+        out = gnn_serve.run(FULL_WIDTH + ["--requests", "1", "--model",
+                                          "gat", "--agg-backend", "tiled"])
+        eng = out.inference
+        eng.run()
+        say(f"[profile] warm layer seconds {eng.layer_times}")
+        _profiled(torch, eng.run, "layer-wise pass")
+    del out, eng
+    expandable_segments(torch, gnn_train)
+    run = gnn_train.run(TRAIN_WIDTH + ["--epochs", "2", "--model", "gat",
+                                       "--agg-backend", "tiled"])
+    _profiled(torch, run.trainer.train_step, "training step")
+
+
+# --------------------------------------------------------- aggregate host
+def _always_function(torch, ops):
+    """`ops.aggregate` as it would be if the tiled backends went through
+    the autograd Function (`_TiledSum` / `_TiledMax`) also when no graph
+    is recorded: the comparison of `--aggregate-host`."""
+    aggregate = ops.aggregate
+
+    def through_function(messages, dst, num_rows, *, edge_order=None,
+                         local_dst=None, backend="scatter", reduce="sum",
+                         **kw):
+        if backend == "scatter":
+            return aggregate(messages, dst, num_rows, backend=backend,
+                             reduce=reduce, **kw)
+        fn = ops._TiledMax if reduce == "max" else ops._TiledSum
+        return fn.apply(messages, dst, edge_order, local_dst, num_rows,
+                        kw.get("tile_v", 256),
+                        kw.get("block_e", 128))[:num_rows]
+    return through_function
+
+
+def phase_aggregate_host(torch, ops, tiling, gnn_serve) -> None:
+    """`--aggregate-host`: the host cost of the autograd Function
+    (`_TiledSum` / `_TiledMax`) that `ops.aggregate` skips on the tiled
+    backends when no graph is recorded, under inference_mode, as serving
+    runs it. Per call: 2000 calls at a served MFG's shape (256
+    rows, 300 edges; F 4 and 512) through `_always_function` and through
+    `ops.aggregate` (which skips the Function when no graph is
+    recorded), interleaved A B B A, host clock over the loop (the
+    launches are queued, the card idles); then the GAT tiled serving run
+    of phase 4 with every batch answered both ways, in alternating order
+    (the host's speed drifts between runs), host compute a batch."""
+    rng = np.random.default_rng(5)
+    rows, e, calls = 256, 300, 2000
+    dst = rng.integers(0, rows, e)
+    order, ldst, _ = tiling.prepare_tiled_edges(dst, rows)
+    dev = dict(device="cuda")
+    d_dst = torch.as_tensor(dst, **dev)
+    d_order = torch.as_tensor(order, dtype=torch.int64, **dev)
+    d_ldst = torch.as_tensor(ldst, **dev)
+    function = _always_function(torch, ops)
+    for f in (4, 512):
+        m = torch.randn(e, f, **dev)
+        per = {"function": [], "direct": []}
+        with torch.inference_mode():
+            for name in ["function", "direct", "direct", "function"]:
+                fn = function if name == "function" else ops.aggregate
+                for _ in range(50):
+                    fn(m, d_dst, rows, edge_order=d_order, local_dst=d_ldst,
+                       backend="tiled")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(m, d_dst, rows, edge_order=d_order, local_dst=d_ldst,
+                       backend="tiled")
+                per[name].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+        say(f"[aggregate-host] F={f}: host us a call through the Function "
+            f"{[round(t, 3) for t in per['function']]}, direct "
+            f"{[round(t, 3) for t in per['direct']]}, difference of the "
+            f"means {np.mean(per['function']) - np.mean(per['direct']):.3f}")
+    # each served batch answered twice, once with each, in alternating
+    # order; host compute is the engine's own clock (forward + sync)
+    from repro_torch.serve.engine import ServeEngine
+    answer, keep, pairs = ServeEngine.answer, ops.aggregate, []
+
+    def paired(self, batch):
+        order = (("function", "direct") if len(pairs) % 2 == 0
+                 else ("direct", "function"))
+        got = {}
+        for name in order:
+            ops.aggregate = function if name == "function" else keep
+            got[name] = answer(self, batch)
+        ops.aggregate = keep
+        np.testing.assert_array_equal(got["function"][0], got["direct"][0])
+        pairs.append((got["function"][2], got["direct"][2]))
+        return got["direct"]
+
+    ServeEngine.answer = paired
+    try:
+        with torch.inference_mode():
+            gnn_serve.run(FULL_WIDTH + ["--model", "gat",
+                                        "--agg-backend", "tiled"])
+    finally:
+        ServeEngine.answer, ops.aggregate = answer, keep
+    t = np.asarray(pairs) * 1e3
+    say(f"[aggregate-host] gat tiled serving, {len(t)} batches each "
+        f"answered both ways: host compute p50 {np.median(t[:, 0]):.4f} "
+        f"ms/batch through the Function, {np.median(t[:, 1]):.4f} direct; "
+        f"per batch (Function - direct) median "
+        f"{np.median(t[:, 0] - t[:, 1]):.4f} ms, quartiles "
+        f"{np.percentile(t[:, 0] - t[:, 1], 25):.4f} / "
+        f"{np.percentile(t[:, 0] - t[:, 1], 75):.4f}; logits equal")
 
 
 # ------------------------------------------------------------------ main
@@ -981,7 +1343,9 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import segment_spmm as spmm
     from repro_torch.kernels import tiling
-    from repro_torch.launch import gnn_serve
+    from repro_torch import optim
+    from repro_torch.gnn import fullbatch, models
+    from repro_torch.launch import gnn_serve, gnn_train
 
     resolve_device("cuda")
     t_start = time.perf_counter()
@@ -989,7 +1353,10 @@ def main() -> int:
     phase_build([spmm.LIBRARY, flash.LIBRARY, decode.LIBRARY])
     say(f"[time] device + build {time.perf_counter() - t_start:.1f}s")
     if "--profile" in sys.argv[1:]:
-        phase_profile(torch, gnn_serve)
+        phase_profile(torch, gnn_serve, gnn_train)
+        return 0
+    if "--aggregate-host" in sys.argv[1:]:
+        phase_aggregate_host(torch, ops, tiling, gnn_serve)
         return 0
     rows_out = phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod)
     say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
@@ -1000,6 +1367,14 @@ def main() -> int:
     seen.clear()
     attn_entries, attn_rows = phase_attention(torch, ops, flash, decode)
     say(f"[time] attention {time.perf_counter() - t_start:.1f}s")
+    train, train_launches = phase_train(torch, spmm, ops, tiling, gnn_train,
+                                        fullbatch, models, optim)
+    for run, n in train_launches.items():
+        assert set(n) <= set(shapes), (
+            f"{run} launched the kernel at shapes phase 5 did not time: "
+            f"{sorted(set(n) - set(shapes))}")
+    launches.update(train_launches)
+    say(f"[time] train {time.perf_counter() - t_start:.1f}s")
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -1009,7 +1384,8 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_spmm.py:59",
-            # launches at this shape over the GAT and SAGE tiled runs
+            # launches at this shape over the GAT and SAGE tiled serving
+            # and training runs
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "E_tiled": row["E_tiled"],
@@ -1027,6 +1403,8 @@ def main() -> int:
     (out_dir / "chip_smoke_kernels.json").write_text(
         json.dumps(rows_out + list(shapes.values()) + attn_rows, indent=1)
         + "\n")
+    (out_dir / "chip_smoke_train.json").write_text(
+        json.dumps(train, indent=1) + "\n")
     say(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

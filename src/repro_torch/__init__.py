@@ -7,5 +7,6 @@ micro-batcher) is kept as NumPy copies of the reference's modules; the
 device layer is PyTorch, and every aggregate runs the hand-written CUDA
 segment-reduce kernel (`kernels/csrc/segment_reduce.cu`) on CUDA tensors.
 
-Entry point: `python -m repro_torch.launch.gnn_serve` (GNN serving).
+Entry points: `python -m repro_torch.launch.gnn_serve` (GNN serving) and
+`python -m repro_torch.launch.gnn_train` (full-batch training).
 """

@@ -1,11 +1,14 @@
-# Copy of the serving part of repro/core/cost_model.py (NumPy only), fp32
-# wire only. tests/test_torch_host.py holds `serve_request` equal to the
-# original.
-"""Cluster cost model — prices one serving micro-batch on the paper's
-32-machine cluster (§3: 8-core Haswell 2.4 GHz, 64 GB RAM).
+# Copy of the serving and full-batch parts of repro/core/cost_model.py
+# (NumPy only): fp32 wire only, edge partition books only.
+# tests/test_torch_host.py holds `serve_request` and `fullbatch_epoch` equal
+# to the originals.
+"""Cluster cost model — prices one serving micro-batch and one full-batch
+training epoch on the paper's 32-machine cluster (§3: 8-core Haswell
+2.4 GHz, 64 GB RAM).
 
-The per-batch inputs (input vertices, remote vertices, cache misses, MFG
-edges) are measured from the real sampled batches; only the hardware
+The inputs (per-partition edges, vertices and replica rows; per-batch
+input vertices, remote vertices, cache misses, MFG edges) are measured
+from the real partition books and sampled batches; only the hardware
 constants below are assumed. These are modeled times for the paper's
 cluster, not times of the device the port runs on.
 
@@ -15,12 +18,17 @@ Conventions: times in seconds, sizes in bytes, rates in bytes/s or flop/s.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Optional
+
+import numpy as np
+
+from repro_torch.core.partition_book import EdgePartitionBook
 
 if TYPE_CHECKING:
     from repro_torch.gnn.models import GNNSpec
 
-__all__ = ["ClusterSpec", "PAPER_CLUSTER", "ServeEstimate", "serve_request"]
+__all__ = ["ClusterSpec", "FullBatchEstimate", "PAPER_CLUSTER",
+           "ServeEstimate", "fullbatch_epoch", "serve_request"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +75,96 @@ def _flops_per_vertex_dims(model: str, dims) -> float:
         else:  # gat
             total += 2.0 * din * dout + 8.0 * dout
     return total
+
+
+def _model_flops_per_vertex(spec: "GNNSpec") -> float:
+    """Dense NN flops per vertex for one forward pass (all layers)."""
+    return _flops_per_vertex_dims(spec.model, spec.dims())
+
+
+def _agg_bytes_per_edge(spec: "GNNSpec") -> float:
+    """Bytes moved per edge per layer for the aggregation (read msg + write)."""
+    dims = [spec.feature_dim] + [spec.hidden_dim] * (spec.num_layers - 1)
+    return float(sum(3 * 4 * d for d in dims))
+
+
+@dataclasses.dataclass(frozen=True)
+class FullBatchEstimate:
+    epoch_time: float
+    compute_time: np.ndarray     # [k] per machine
+    comm_time: np.ndarray        # [k]
+    comm_bytes: np.ndarray       # [k] true (unpadded) replica-sync traffic
+    memory: np.ndarray           # [k] bytes
+    oom: bool
+    # [k] encoded bytes crossing the network; == comm_bytes (fp32 wire)
+    wire_bytes: Optional[np.ndarray] = None
+
+
+def fullbatch_epoch(
+    book: EdgePartitionBook,
+    spec: "GNNSpec",
+    cluster: ClusterSpec = PAPER_CLUSTER,
+    codec=None,
+) -> FullBatchEstimate:
+    """Full-batch epoch estimate from a real edge partition book
+    (DistGNN/halo regime).
+
+    Compute: aggregation is memory-bound over local edges; vertex updates are
+    dense flops over local (replicated!) vertices — so *vertex imbalance*
+    directly skews compute, exactly the paper's §4.2(2) observation.
+    Communication: true per-partition replica-sync volume (alltoallv on the
+    paper's cluster — no bucket padding), reduce + broadcast per layer,
+    forward + backward. fp32 wire only: 4 bytes an element.
+    """
+    if not isinstance(book, EdgePartitionBook):
+        raise NotImplementedError(
+            f"fullbatch_epoch on a {type(book).__name__} (the 1.5D ring "
+            "regime) is not yet ported")
+    if codec not in (None, "fp32"):
+        raise NotImplementedError(f"wire codec {codec!r} is not yet ported; "
+                                  "this port has fp32 only")
+    k = book.k
+    edges = book.emask.sum(axis=1).astype(np.float64)
+    verts = book.vmask.sum(axis=1).astype(np.float64)
+
+    # fwd + bwd ~ 3x forward cost (standard rule of thumb)
+    agg_bytes = edges * _agg_bytes_per_edge(spec) * 3.0
+    nn_flops = verts * _model_flops_per_vertex(spec) * 3.0
+    compute = agg_bytes / cluster.mem_bw + nn_flops / cluster.flops
+
+    # per-partition sync volume: rows it sends (as mirror) + rows it returns
+    # (as master) = send_mask + recv_mask true counts, per layer/round.
+    send_rows = book.send_mask.sum(axis=(1, 2)).astype(np.float64)
+    recv_rows = book.recv_mask.sum(axis=(1, 2)).astype(np.float64)
+    dims = [dout for _, dout in spec.dims()]
+    aggs_per_layer = 3 if spec.model == "gat" else 1
+    syncs = aggs_per_layer * 2  # per layer, fwd+bwd
+    rows = send_rows + recv_rows
+    comm_bytes = np.zeros(k)
+    wire_bytes = np.zeros(k)
+    for d in dims:
+        comm_bytes += rows * d * 4 * syncs
+        wire_bytes += rows * d * 4.0 * syncs
+    comm = wire_bytes / cluster.net_bw + cluster.net_latency * 2 * len(dims) * syncs
+
+    # memory: features + per-layer activations (kept for backward) + graph
+    f, h, L = spec.feature_dim, spec.hidden_dim, spec.num_layers
+    memory = (
+        verts * f * 4
+        + verts * h * 4 * L * 2
+        + edges * 8
+        + rows * max(f, h) * 4
+    )
+    epoch = float((compute + comm).max())
+    return FullBatchEstimate(
+        epoch_time=epoch,
+        compute_time=compute,
+        comm_time=comm,
+        comm_bytes=comm_bytes,
+        memory=memory,
+        oom=bool((memory > cluster.memory).any()),
+        wire_bytes=wire_bytes,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,2 +1,2 @@
-"""GNN layers, halo sync, layer-wise inference, the MFG forward, and the
-NumPy sampler / row store."""
+"""GNN layers, the loss, halo sync, full-batch training, layer-wise
+inference, the MFG forward, and the NumPy sampler / row store."""

@@ -62,9 +62,12 @@ def _mb_gat_layer(p, h_src, lay, n_dst: int, *, final: bool,
     e = torch.where(lay["emask"][:, None], e, -1e30)
     e_self = F.leaky_relu(s_src[:n_dst] + s_dst, 0.2)
 
-    # softmax stabilisation max through the same segment reduce as the sums
-    m = _mb_aggregate(e, lay, n_dst, backend, reduce="max")
-    m = torch.maximum(m[:-1], e_self)
+    # softmax stabilisation max through the same segment reduce as the sums,
+    # with no gradient (the reference's stop_gradient; exact, softmax is
+    # shift-invariant)
+    with torch.no_grad():
+        m = _mb_aggregate(e, lay, n_dst, backend, reduce="max")
+        m = torch.maximum(m[:-1], e_self)
     m_pad = F.pad(m, (0, 0, 0, 1))
     w = torch.exp(e - m_pad[lay["edst"]]) * lay["emask"][:, None]
     w_self = torch.exp(e_self - m)

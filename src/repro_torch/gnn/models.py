@@ -14,6 +14,9 @@ destination as a row of the flattened [k*(Vloc+1)] row space, and the edge
 mask. Self terms (GCN's self-loop, GAT's self-edge) are added after
 completion, as in the reference.
 
+`forward` runs the whole model and `loss_fn` is the reference's
+master-gated masked cross-entropy over the stacked partitions.
+
 Parameters are a dict {"layers": [dict of tensors]}; `init_params` draws the
 same NumPy stream as the reference, so both packages start from
 bit-identical weights.
@@ -156,14 +159,17 @@ def gat_layer(p, x, blk, sync, *, final: bool,
     # 1) global max per destination (stable softmax). Rows no valid edge
     # reaches come back at the -1e30 mask floor (scatter) or -inf (tiled
     # drops masked edges); the e_self / -1e29 clamps make the backends agree.
-    m = sync.edge_aggregate(
-        blk, s_src,
-        lambda src, dst, mask: torch.where(mask[:, None], score(src, dst),
-                                           -1e30),
-        reduce="max", backend=backend)
+    # Softmax is shift-invariant, so the shift needs no gradient (the
+    # reference's stop_gradient): it is taken with no graph, which keeps
+    # HaloSync.reduce_max's in-place completion out of autograd.
     e_self = F.leaky_relu(s_src + s_dst, 0.2)
-    m = torch.maximum(m, e_self)
-    m_safe = torch.clamp(m, min=-1e29)  # isolated vertices
+    with torch.no_grad():
+        m = sync.edge_aggregate(
+            blk, s_src,
+            lambda src, dst, mask: torch.where(mask[:, None],
+                                               score(src, dst), -1e30),
+            reduce="max", backend=backend)
+        m_safe = torch.clamp(torch.maximum(m, e_self), min=-1e29)
     m_rows = m_safe.reshape(k * n, h_heads)
 
     # 2) + 3) share one payload carrying [s_src | z]
@@ -191,3 +197,39 @@ def gat_layer(p, x, blk, sync, *, final: bool,
 
 
 _LAYERS = {"sage": sage_layer, "gcn": gcn_layer, "gat": gat_layer}
+
+
+def forward(spec: GNNSpec, params: Params, x, blk, sync) -> torch.Tensor:
+    """Full model forward on the stacked blocks. Returns logits
+    [k, Vloc+1, num_classes] (valid at every replica; the loss is
+    master-gated)."""
+    layer_fn = _LAYERS[spec.model]
+    n = x.shape[1]
+    # the dummy row must stay zero: it is a scatter sink for padding. Out of
+    # place (the reference's h.at[-1].set(0.0)): relu / elu save their
+    # output for the backward, so an in-place write would break it
+    dummy = (torch.arange(n, device=x.device) == n - 1)[:, None]
+    h = x
+    n_layers = len(params["layers"])
+    for li, p in enumerate(params["layers"]):
+        h = layer_fn(p, h, blk, sync, final=(li == n_layers - 1),
+                     backend=spec.agg_backend)
+        h = torch.where(dummy, 0.0, h)
+    return h
+
+
+def loss_fn(spec: GNNSpec, params: Params, x, blk, sync) -> torch.Tensor:
+    """Masked softmax cross-entropy, averaged over the global training
+    vertices: a scalar. Counted only at master replicas (each training
+    vertex once across the cluster); `sync.psum` sums the partitions'
+    [local_sum, local_cnt]. The reference's train step averages k equal
+    per-device losses; here that mean is this one scalar."""
+    logits = forward(spec, params, x, blk, sync)
+    logp = F.log_softmax(logits, dim=-1)
+    labels = torch.clamp(blk.labels.long(), min=0)
+    picked = torch.gather(logp, -1, labels[..., None])[..., 0]
+    weight = (blk.train_mask & blk.master & (blk.labels >= 0)).float()
+    local_sum = -(picked * weight).sum(dim=1)
+    local_cnt = weight.sum(dim=1)
+    total = sync.psum(torch.stack([local_sum, local_cnt], dim=1))
+    return total[0] / torch.clamp(total[1], min=1.0)

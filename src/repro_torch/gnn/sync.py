@@ -7,6 +7,8 @@ dimension:
 
     edge_aggregate(blk, payload [k, n, d], msg_fn, *, reduce, backend)
         -> [k, n, d], complete over the symmetrised adjacency
+    psum(v [k, ...]) -> [...], the sum over the partitions (the
+        reference's `lax.psum` over its device axis)
 
 `msg_fn(src_rows, dst_rows, edge_mask)` sees the payload rows gathered at
 each edge's source, the edge's destination as a row of the flattened
@@ -159,7 +161,7 @@ class LocalSync(_PartialAggSync):
         return h
 
     def psum(self, v):
-        return v
+        return v.sum(0)
 
 
 def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:

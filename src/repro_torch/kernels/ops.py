@@ -7,11 +7,23 @@ flash_attention.py, decode_attention.py); on a CPU tensor they compute the
 same function in plain PyTorch. "pallas", the reference's name for "force
 the kernel", keeps that meaning here (the aggregate backend, the attention
 ops' `use_pallas=True`), so one `GNNSpec` runs in both packages: it
-launches the kernel and raises on a CPU tensor. Forward only: the kernel
-paths raise if a gradient is requested.
+launches the kernel and raises on a CPU tensor.
+
+`aggregate` is differentiable on every backend. On the tiled and pallas
+backends two `torch.autograd.Function`s (`_TiledSum`, `_TiledMax`), twins
+of the reference's `custom_vjp`s, wrap the layout gather and the segment
+reduce on both devices: the kernel on CUDA, its plain version on the CPU,
+so the CPU tests run the backward the card runs. The sum's backward is the
+gather `g[dst]`; the max's is the masked argmax, with ties split evenly
+and counted by the same segment sum. Neither saves the `[E_tiled, F]`
+gathered layout. With no graph to record (serving, under
+`inference_mode`) `aggregate` runs the same forward without them. The
+kernel wrapper itself stays forward only.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -45,14 +57,105 @@ def segment_spmm(
         f"tiled layout mismatch: {e} edges do not split over {n_tiles} row "
         f"tiles (num_rows={num_rows}, tile_v={tile_v}); was the layout built "
         f"with a different (num_rows, tile_v)?")
+    return _reduce(messages, local_dst, rows_padded, combiner, tile_v,
+                   block_e)[:num_rows]
+
+
+def _reduce(messages, local_dst, rows_padded: int, combiner: str,
+            tile_v: int, block_e: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, its plain version on a CPU one:
+    [rows_padded, F], a fresh tensor (no view: autograd forbids in-place
+    writes on a view that a custom Function returns)."""
     if messages.is_cuda:
-        out = _spmm.segment_spmm(messages, local_dst, rows_padded,
-                                 combiner=combiner, tile_v=tile_v,
-                                 block_e=block_e)
-    else:
-        out = _spmm.segment_spmm_plain(messages, local_dst, rows_padded,
-                                       combiner=combiner, tile_v=tile_v)
-    return out[:num_rows]
+        return _spmm.segment_spmm(messages, local_dst, rows_padded,
+                                  combiner=combiner, tile_v=tile_v,
+                                  block_e=block_e)
+    # the plain version's rows are a view of its sink-row buffer
+    return _spmm.segment_spmm_plain(messages, local_dst, rows_padded,
+                                    combiner=combiner, tile_v=tile_v).clone()
+
+
+def _tiled_reduce(messages, edge_order, local_dst, num_rows: int,
+                  reduce: str, tile_v: int, block_e: int) -> torch.Tensor:
+    """Gather `messages` into the tiled layout (the pad slot reads a row of
+    the reduce identity) and segment-reduce: [rows_padded, F], fresh."""
+    rows_padded, _ = tiled_shape(num_rows, tile_v)
+    fill = 0.0 if reduce == "sum" else float("-inf")
+    msg_pad = torch.cat(
+        [messages, messages.new_full((1, messages.shape[1]), fill)])
+    return _reduce(msg_pad.index_select(0, edge_order), local_dst,
+                   rows_padded, reduce, tile_v, block_e)
+
+
+def _gather_rows(g: torch.Tensor, dst: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """g[min(dst, num_rows)] with a zero pad row: the transpose of a
+    segment sum into rows dst (sink dst == num_rows gets nothing)."""
+    g_pad = torch.cat([g[:num_rows], g.new_zeros((1, g.shape[1]))])
+    return g_pad.index_select(0, torch.clamp(dst.long(), max=num_rows))
+
+
+class _TiledSum(torch.autograd.Function):
+    """Tiled segment sum of `messages` into [rows_padded, F] rows; the
+    twin of the reference's `_tiled_aggregate`. Backward: the transpose of
+    a pre-sorted scatter-add is a gather, grad_messages = g[dst]."""
+
+    @staticmethod
+    def forward(ctx, messages, dst, edge_order, local_dst, num_rows, tile_v,
+                block_e):
+        ctx.save_for_backward(dst)
+        ctx.num_rows = num_rows
+        return _tiled_reduce(messages, edge_order, local_dst, num_rows,
+                             "sum", tile_v, block_e)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return (_gather_rows(g, dst, ctx.num_rows),
+                None, None, None, None, None, None)
+
+
+class _TiledMax(torch.autograd.Function):
+    """Tiled segment max (init -inf); the twin of the reference's
+    `_tiled_aggregate_max`. Backward: the cotangent of row r flows to the
+    layout-present edges whose message equals the row max (exact: the
+    kernel takes maxes without arithmetic), split evenly among ties, the
+    scatter oracle's convention. An edge the layout dropped is not part of
+    the computed max and gets zero even where it ties. Ties are counted by
+    the same segment sum as the forward (the kernel on CUDA). The GAT
+    layers take their softmax shift with no gradient and never run this;
+    it serves a standalone `aggregate(reduce="max")`. It saves its output,
+    so that output must not be written in place before the backward."""
+
+    @staticmethod
+    def forward(ctx, messages, dst, edge_order, local_dst, num_rows, tile_v,
+                block_e):
+        out = _tiled_reduce(messages, edge_order, local_dst, num_rows, "max",
+                            tile_v, block_e)
+        ctx.save_for_backward(messages, dst, out, edge_order, local_dst)
+        ctx.args = (num_rows, tile_v, block_e)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        messages, dst, out, edge_order, local_dst = ctx.saved_tensors
+        num_rows, tile_v, block_e = ctx.args
+        e, f = messages.shape
+        dstc = torch.clamp(dst.long(), max=num_rows)
+        # pad slots of the layout index row e, one past the messages
+        in_layout = torch.zeros(e + 1, dtype=torch.bool,
+                                device=messages.device)
+        in_layout[edge_order] = True
+        # the sink row compares against +inf (never the max)
+        out_pad = torch.cat([out[:num_rows], out.new_full((1, f), math.inf)])
+        is_max = ((messages == out_pad.index_select(0, dstc))
+                  & in_layout[:e, None])
+        ties = _tiled_reduce(is_max.to(g.dtype), edge_order, local_dst,
+                             num_rows, "sum", tile_v, block_e)
+        share = (_gather_rows(g, dstc, num_rows)
+                 / torch.clamp(_gather_rows(ties, dstc, num_rows), min=1.0))
+        grad = torch.where(is_max, share, 0.0).to(messages.dtype)
+        return grad, None, None, None, None, None, None
 
 
 def aggregate(
@@ -71,9 +174,11 @@ def aggregate(
 
     backend:
       scatter — index_add_ / scatter_reduce_(amax) on the original edge
-                order, any device; dst == num_rows is a sink row
+                order, any device, autograd's own backward; dst == num_rows
+                is a sink row
       tiled   — gather into the `prepare_tiled_edges` layout, then the
-                kernel (CUDA tensors) or its plain version (CPU tensors)
+                kernel (CUDA tensors) or its plain version (CPU tensors);
+                the `_TiledSum` / `_TiledMax` backward
       pallas  — like tiled but always the kernel: raises on CPU tensors
 
     reduce: sum (identity 0) or max (identity -inf: rows no edge reaches
@@ -100,13 +205,18 @@ def aggregate(
     if backend == "pallas" and not messages.is_cuda:
         raise ValueError("backend 'pallas' forces the CUDA kernel; got a "
                          f"tensor on {messages.device}")
-    # the pad row the layout's pad edges gather: the reduce identity
-    fill = 0.0 if reduce == "sum" else float("-inf")
-    msg_pad = torch.cat(
-        [messages, messages.new_full((1, messages.shape[1]), fill)])
-    return segment_spmm(
-        msg_pad.index_select(0, edge_order), local_dst, num_rows,
-        combiner=reduce, tile_v=tile_v, block_e=block_e)
+    if torch.is_grad_enabled() and messages.requires_grad:
+        fn = _TiledMax if reduce == "max" else _TiledSum
+        out = fn.apply(messages, dst, edge_order, local_dst, num_rows,
+                       tile_v, block_e)
+    else:
+        # no graph to record: the same forward without the Function, whose
+        # own host time is a tenth of a served GAT batch's host compute
+        # (median 0.083 of 0.73 ms, each batch timed both ways on an H100;
+        # chip_smoke.py --aggregate-host)
+        out = _tiled_reduce(messages, edge_order, local_dst, num_rows,
+                            reduce, tile_v, block_e)
+    return out[:num_rows]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,5 @@
+"""Optimizers as pure functions on the `{"layers": [...]}` parameter dict."""
+
+from repro_torch.optim.adam import AdamState, adam_init, adam_update
+
+__all__ = ["AdamState", "adam_init", "adam_update"]

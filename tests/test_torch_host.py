@@ -15,6 +15,7 @@ from repro.core import metrics as j_metrics  # noqa: E402
 from repro.core import partition_book as j_book  # noqa: E402
 from repro.core import vertex_partition as j_vp  # noqa: E402
 from repro.gnn import feature_store as j_fs  # noqa: E402
+from repro.gnn import fullbatch as j_fb  # noqa: E402
 from repro.gnn.models import GNNSpec as JSpec  # noqa: E402
 from repro.kernels import tiling as j_tiling  # noqa: E402
 from repro.serve import batcher as j_batcher  # noqa: E402
@@ -25,6 +26,7 @@ from repro_torch.core import metrics as t_metrics  # noqa: E402
 from repro_torch.core import partition_book as t_book  # noqa: E402
 from repro_torch.core import vertex_partition as t_vp  # noqa: E402
 from repro_torch.gnn import feature_store as t_fs  # noqa: E402
+from repro_torch.gnn import fullbatch as t_fb  # noqa: E402
 from repro_torch.gnn.models import GNNSpec as TSpec  # noqa: E402
 from repro_torch.kernels import tiling as t_tiling  # noqa: E402
 from repro_torch.serve import batcher as t_batcher  # noqa: E402
@@ -178,3 +180,29 @@ def test_serve_request_identical(model, hops):
         te = t_cost.serve_request(*args, TSpec(**kw), embed_dim=48, hops=hops)
         assert_same(je, te, model)
     assert_same(j_cost.PAPER_CLUSTER, t_cost.PAPER_CLUSTER)
+
+
+@pytest.mark.parametrize("model", ["sage", "gat"])
+@pytest.mark.parametrize("method", ["hep100", "random"])
+def test_fullbatch_accounting_identical(graphs, model, method):
+    """The copied `fullbatch_epoch` and the trainers' `comm_bytes_per_epoch`
+    / `memory_bytes_per_partition` give the reference's numbers bit for
+    bit on the same book (k=4)."""
+    jg, tg = graphs
+    a = j_ep.partition_edges(jg, 4, method, seed=0)
+    kw = dict(model=model, feature_dim=16, hidden_dim=8, num_classes=5,
+              num_layers=3)
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(jg.num_vertices, 16)).astype(np.float32)
+    labels = rng.integers(0, 5, jg.num_vertices).astype(np.int32)
+    train = rng.random(jg.num_vertices) < 0.3
+    jt = j_fb.FullBatchTrainer.build(jg, a, 4, JSpec(**kw), feats, labels,
+                                     train, seed=0)
+    tt = t_fb.FullBatchTrainer.build(tg, a, 4, TSpec(**kw), feats, labels,
+                                     train, seed=0, device="cpu")
+    assert_same(jt.book, tt.book, "book")
+    assert_same(j_cost.fullbatch_epoch(jt.book, JSpec(**kw)),
+                t_cost.fullbatch_epoch(tt.book, TSpec(**kw)), "estimate")
+    assert jt.comm_bytes_per_epoch() == tt.comm_bytes_per_epoch()
+    assert_same(jt.memory_bytes_per_partition(),
+                tt.memory_bytes_per_partition(), "memory")
