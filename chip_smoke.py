@@ -32,10 +32,15 @@ ends the script with a traceback and a non-zero exit:
                rtol=atol=2e-4; and a small run on the card held against the
                same run on the CPU. p50/p99 latencies are modeled on the
                paper's cluster by `serve_request`; host compute and layer
-               times are measured on the card.
-  5. shapes  — every (combiner, rows, F) the kernel ran at in phase 4,
-               again on the `local_dst` that phase 4 passed it (kept from
-               its first launch) with random messages: the checks of
+               times are measured on the card. Then phase 8's first batch
+               is drawn on the host (a CPU trainer at its configuration),
+               and each layer's tiled layout is kept for phase 5 at every
+               (combiner, rows, F) a GAT or SAGE mini-batch step launches.
+  5. shapes  — every (combiner, rows, F) the kernel ran at in phase 4, or
+               that phase 8 will launch, again on the `local_dst` that
+               phase 4 passed it (kept from its first launch) or that
+               phase 8's first batch holds, with random messages: the
+               checks of
                phase 3 (at rows=69632, F=512 the sum's fold covers the
                first columns that fit FOLD_MAX_TERMS terms), and kernel /
                plain / library / bound ms.
@@ -64,8 +69,9 @@ ends the script with a traceback and a non-zero exit:
                (DECODE_SPLITS).
   7. train   — full-batch training at phase 4's widths (OR 1.0, hep100,
                k=4, 512, 3 layers, 16 classes), 5 steps, on expandable
-               allocator segments (`gnn_train.TRAIN_ALLOC_CONF`; it comes
-               last so that phases 1-6 run on the default fixed segments):
+               allocator segments (`gnn_train.TRAIN_ALLOC_CONF`; training
+               comes last so that phases 1-6 run on the default fixed
+               segments):
                GAT tiled through the `gnn_train` entry point, then GAT
                scatter, SAGE tiled and SAGE scatter through the trainer API
                on the same book, the launch counters set to 0 before and
@@ -80,18 +86,40 @@ ends the script with a traceback and a non-zero exit:
                against the same run on the CPU; the max aggregate's backward
                on the card (kernel max and tie count) bit for bit against
                its plain version on an input with ties.
+  8. minibatch — mini-batch (DistDGL) training at phase 7's widths on OR
+               1.0, metis vertex partitions, k=4, fanouts (15, 10, 5),
+               global batch 1024 (`MB_WIDTH`), on the same allocator: GAT
+               tiled through `gnn_train --regime minibatch` (one epoch,
+               serial), then GAT scatter and SAGE both ways serial, and
+               all four overlapped (prefetch depth 2), MB_STEPS steps each
+               through the trainer API, the launch counters set to 0
+               before and read after each run. Every tiled run launched
+               the kernel as `expected_minibatch_launches` counts, scatter
+               runs never; tiled == scatter within LOSS_TOL a step (shown
+               rejecting a shifted trajectory); overlapped == serial bit
+               for bit on all four paths; serial host phases sum to the
+               step wall; a small run on the card == the CPU. Prints
+               losses, warm step seconds and host phases in both modes,
+               overlap efficiency, peak memory and launches per step; then
+               which accumulating operations repeat on the card without
+               the repeatable step (`determinism_probe`) and, per path, the
+               device step's time with and without it on three fixed
+               batches (runs with it must repeat bit for bit).
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phases 4 and 7 made at that
-shape (phase 7 fails if it launched the kernel at a shape phase 4 did not)
+entry per shape of phase 5 with the launches phases 4, 7 and 8 made at that
+shape (phases 7 and 8 fail if they launched the kernel at a shape phase 5
+did not time)
 and one per (attention kernel, shape, dtype) of phase 6, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
-training results to chiprun_out/chip_smoke_train.json.
+training results (phase 8's under "minibatch") to
+chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
-a torch.profiler pass over the GAT main path's layer-wise inference and
-one over a GAT tiled training step at the training phase's widths.
+a torch.profiler pass over the GAT main path's layer-wise inference, one
+over a GAT tiled full-batch training step at the training phase's widths
+and one over a serial GAT tiled mini-batch step at phase 8's.
 `python3 chip_smoke.py --aggregate-host` runs only the device and build
 phases and `phase_aggregate_host`: the host time a call and a served batch
 of `ops.aggregate`'s autograd Function under inference_mode.
@@ -186,6 +214,18 @@ TRAIN_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
 TRAIN_STEPS = 5
 REPEAT_STEPS = 3
 LOSS_TOL = 1e-4
+# the mini-batch phase (8): phase 7's graph and widths in the DistDGL
+# regime: vertex partitions by metis (the reference's tests/test_pipeline.py
+# partitioner), k=4, the paper's 3-layer fanouts (15, 10, 5), global batch
+# 1024 (the reference's MiniBatchTrainer.build default: 256 seeds a
+# worker), one epoch (7 steps); Adam at the CLI's mini-batch default 1e-3,
+# the reference trainer's; no feature cache
+MB_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "metis",
+            "--k", "4", "--features", "512", "--hidden", "512",
+            "--layers", "3", "--classes", "16", "--regime", "minibatch",
+            "--batch", "1024", "--epochs", "1", "--device", "cuda"]
+MB_STEPS = 5
+MB_COST_STEPS = 3
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -596,19 +636,42 @@ def hold_losses(a, b, what) -> float:
     return diff
 
 
-def expected_launches(spec, steps: int) -> dict:
-    """The segment-reduce launches of `steps` tiled training steps, by
-    (combiner, F): per layer, sage/gcn one sum at the layer's input width;
-    gat the softmax shift's max (F = heads) and two sums (the denominator,
-    F = heads, and the numerator, F = heads x head dim). The backward
-    launches none: a sum's transpose is a gather, and the shift takes no
-    gradient."""
-    out = {}
+def _layer_launches(spec) -> list:
+    """Per layer, the (combiner, F) of each segment-reduce launch of a tiled
+    training step: sage/gcn one sum at the layer's input width; gat the
+    softmax shift's max (F = heads) and two sums (the denominator, F =
+    heads, and the numerator, F = heads x head dim). The backward launches
+    none: a sum's transpose is a gather, and the shift takes no gradient."""
+    out = []
     for dims in spec.aggregate_dims("halo"):
         combiners = (["max"] + ["sum"] * (len(dims) - 1)
                      if spec.model == "gat" else ["sum"] * len(dims))
-        for c, f in zip(combiners, dims):
+        out.append(list(zip(combiners, dims)))
+    return out
+
+
+def expected_launches(spec, steps: int) -> dict:
+    """The segment-reduce launches of `steps` tiled full-batch steps, by
+    (combiner, F) (`_layer_launches`, once a layer: the k partitions are
+    one stacked launch)."""
+    out = {}
+    for layer in _layer_launches(spec):
+        for c, f in layer:
             out[(c, f)] = out.get((c, f), 0) + steps
+    return out
+
+
+def expected_minibatch_launches(spec, plan, tiling, k: int,
+                                steps: int) -> dict:
+    """The segment-reduce launches of `steps` tiled mini-batch steps, by
+    (combiner, rows, F): a layer's launches (`_layer_launches`) once per
+    worker (`minibatch_loss` runs the k MFGs one by one), at the layer's
+    padded rows (the pad plan's n_dst + 1 rounded up to whole row tiles)."""
+    out = {}
+    for pad, layer in zip(plan.layers, _layer_launches(spec)):
+        rows, _ = tiling.tiled_shape(pad.n_dst + 1, 256)
+        for c, f in layer:
+            out[(c, rows, f)] = out.get((c, rows, f), 0) + steps * k
     return out
 
 
@@ -780,6 +843,312 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
     results = {f"{m} {b}": r for (m, b), r in runs.items()}
     results["small_card_vs_cpu_max_abs_dloss"] = diff
     results["max_backward"] = max_backward_check(torch, spmm, ops, tiling)
+    return results, main_launches
+
+
+# ---------------------------------------------------------------- phase 8
+def minibatch_shapes(torch, gnn_train, minibatch, partition_vertices,
+                     tiling, seen) -> None:
+    """Phase 8's first batch drawn before phase 5, on the host (a CPU
+    trainer: no device work): worker 0's tiled layout of each layer joins
+    `seen` at every (combiner, rows, F) a GAT or SAGE mini-batch step
+    launches the kernel at, so phase 5 times those shapes on a layout the
+    sampler made."""
+    args = gnn_train.parser().parse_args(
+        MB_WIDTH + ["--model", "gat", "--agg-backend", "tiled"])
+    g, feats, labels, mask, spec = gnn_train.problem(args)
+    a = partition_vertices(g, args.k, args.partitioner, seed=args.seed,
+                           train_mask=mask)
+    tr = minibatch.MiniBatchTrainer.build(
+        g, a, args.k, spec, feats, labels, mask, device="cpu",
+        global_batch=args.batch, seed=args.seed)
+    pb, _ = tr.engine.next_batch()
+    tr.close()
+    layer_of = {tiling.tiled_shape(pad.n_dst + 1, 256)[0]: li
+                for li, pad in enumerate(tr.plan.layers)}
+    keys = set()
+    for model in ("gat", "sage"):
+        keys |= set(expected_minibatch_launches(
+            dataclasses.replace(spec, model=model), tr.plan, tiling, 1, 1))
+    for key in sorted(keys):
+        ldst = pb.host["layers"][layer_of[key[1]]]["agg_ldst"][0]
+        seen[key] = (torch.as_tensor(ldst, device="cuda"), torch.float32,
+                     {"tile_v": 256, "block_e": 512})
+    say(f"[minibatch] shapes for phase 5 from the first batch (worker 0): "
+        f"{sorted(keys)}; plan {[tuple(p) for p in tr.plan.layers]}, "
+        f"input vertices {pb.input_vertices.tolist()}, edges "
+        f"{pb.edges.tolist()}")
+
+
+def mb_steps(torch, spmm, tr, steps: int):
+    """`steps` steps of mini-batch trainer `tr` with the launch counters set
+    to 0 just before and read just after; the engine closed after. Returns
+    the StepMetrics, the launches and the peak device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with recording(spmm) as launches:
+        try:
+            sms = [tr.train_step() for _ in range(steps)]
+        finally:
+            tr.close()
+    return sms, launches, torch.cuda.max_memory_allocated()
+
+
+def determinism_probe(torch, ref, minibatch, batch, plan) -> dict:
+    """Which of the step's accumulating operations repeat bit for bit on
+    the card, at layer 0 of worker 0 of a phase-8 batch: `index_add_` (the
+    scatter backend's sum, forward) and the transpose of the edge gather
+    `h[esrc]` (autograd's `index_put_` accumulate); each run twice without
+    and twice with the repeatable step's deterministic algorithms (which
+    must repeat)."""
+    lay = {n: t[0] for n, t in batch.stacked["layers"][0].items()}
+    x = batch.stacked["x"][0]
+    n_dst = plan.layers[0].n_dst
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    msgs = torch.randn(lay["edst"].shape[0], x.shape[1], device=x.device,
+                       generator=gen)
+
+    def index_add():
+        return ref.segment_sum_ref(msgs, lay["edst"], n_dst + 1)
+
+    def gather_backward():
+        h = x.detach().requires_grad_()
+        (gh,) = torch.autograd.grad(h[lay["esrc"]], h, msgs)
+        return gh
+
+    out = {}
+    for name, fn in (("index_add_ (scatter sum)", index_add),
+                     ("h[esrc] backward (index_put_ accumulate)",
+                      gather_backward)):
+        for on in (False, True):
+            with minibatch.repeatable_step(on):
+                same = torch.equal(fn(), fn())
+            out[f"{name}, deterministic={on}"] = same
+            say(f"[minibatch] probe {name} at [{msgs.shape[0]}, "
+                f"{msgs.shape[1]}], deterministic algorithms {on}: two runs "
+                f"{'bitwise equal' if same else 'differ'}")
+            assert same or not on, f"{name} differs under the repeatable step"
+    return out
+
+
+def hot_row_probe(torch, ref, minibatch, batch, plan) -> dict:
+    """What the pad edges' one hot row costs (reported, not asserted), at
+    layer 0 of worker 0 of a phase-8 batch. Every pad edge reads the last
+    source row (`esrc` clamped to n_src - 1) and writes the sink row
+    (`edst` == n_dst), and a sort-based accumulate walks one row's edges
+    one after another. CUDA-event ms of: the transpose of `h[esrc]` as the
+    step runs it, and with the pad edges' `esrc` spread over all source
+    rows (their messages are masked to zero, so any row gives the same
+    values); `index_add_` (the scatter sum) in atomic order, and under
+    deterministic algorithms with and without the pad edges."""
+    lay = {n: t[0] for n, t in batch.stacked["layers"][0].items()}
+    x = batch.stacked["x"][0]
+    n_src, n_dst = plan.layers[0].n_src, plan.layers[0].n_dst
+    gen = torch.Generator(device=x.device).manual_seed(2)
+    msgs = torch.randn(lay["edst"].shape[0], x.shape[1], device=x.device,
+                       generator=gen)
+    real = lay["emask"]
+    pos = torch.arange(real.shape[0], device=x.device)
+    spread = torch.where(real, lay["esrc"], pos % n_src)
+
+    def transpose(esrc):
+        h = x.detach().requires_grad_()
+        return torch.autograd.grad(h[esrc], h, msgs)[0]
+
+    def det(fn):
+        def run():
+            with minibatch.repeatable_step(True):
+                return fn()
+        return run
+
+    def add(m, d):
+        return lambda: ref.segment_sum_ref(m, d, n_dst + 1)
+
+    ms = {
+        "h[esrc] transpose, pad edges on one row": _time_ms(
+            torch, lambda: transpose(lay["esrc"]), 3),
+        "h[esrc] transpose, pad edges spread": _time_ms(
+            torch, lambda: transpose(spread), 3),
+        "index_add_, atomic": _time_ms(torch, add(msgs, lay["edst"]), 3),
+        "index_add_, deterministic": _time_ms(
+            torch, det(add(msgs, lay["edst"])), 3),
+        "index_add_, deterministic, real edges only": _time_ms(
+            torch, det(add(msgs[real], lay["edst"][real])), 3),
+    }
+    say(f"[minibatch] hot-row probe at [{msgs.shape[0]}, {msgs.shape[1]}] "
+        f"({int((~real).sum())} pad edges of {real.shape[0]}, {n_src} source "
+        f"rows), ms: { {k: round(v, 4) for k, v in ms.items()} }")
+    return ms
+
+
+def phase_minibatch(torch, spmm, ref, tiling, gnn_train, minibatch, models,
+                    optim) -> tuple[dict, dict]:
+    """Mini-batch training at full width (`MB_WIDTH`): GAT tiled through the
+    `gnn_train` entry point (one epoch, serial), then GAT scatter, SAGE
+    tiled and SAGE scatter serial and all four overlapped (prefetch depth
+    2) through the trainer API on the same book and store, MB_STEPS steps
+    each, the launch counters set to 0 before and read after each run.
+    Holds every tiled run's launches to `expected_minibatch_launches`,
+    scatter runs to none, tiled == scatter within LOSS_TOL a step (the check
+    shown rejecting a shifted trajectory), overlapped == serial bit for bit,
+    serial phase accounting == the step wall, and the card == the CPU at a
+    small size. Then the repeatable step's cost and what it repairs: the
+    operation probe, the pad edges' hot-row probe, and per path the device
+    step on three batches drawn once, with and without it (A B B A), whose
+    runs with it must repeat."""
+    runs, main_launches = {}, {}
+
+    def record(key, spec, plan, sms, launches, peak, wall):
+        model, backend, mode = key
+        losses = [s.loss for s in sms]
+        walls = [s.step_wall_host for s in sms]
+        warm = float(np.median(walls[1:MB_STEPS]))
+        phases = {name: float(np.median([getattr(s, f"{name}_time_host")
+                                         for s in sms[1:MB_STEPS]]))
+                  for name in ("sample", "fetch", "transfer", "compute")}
+        phases["queue_wait"] = float(np.median(
+            [s.queue_wait_host for s in sms[1:MB_STEPS]]))
+        eff = float(np.mean([s.overlap_efficiency for s in sms[1:MB_STEPS]]))
+        per_step = {f"{c} rows={r} F={f}": n / len(sms)
+                    for (c, r, f), n in sorted(launches.items())}
+        runs[key] = {
+            "losses": losses, "step_wall_seconds": walls,
+            "warm_step_seconds": warm, "warm_phase_seconds": phases,
+            "overlap_efficiency": eff, "peak_bytes": peak,
+            "launches_per_step": per_step, "wall_seconds": wall,
+            "input_vertices": [s.input_vertices.tolist() for s in sms],
+            "edges": [s.edges.tolist() for s in sms]}
+        say(f"[minibatch] {model} {backend} {mode}: losses {losses}, step "
+            f"seconds {[round(t, 4) for t in walls]}, warm (median of steps "
+            f"2-{MB_STEPS}) {warm:.4f}s, warm host phases (s) "
+            f"{ {k: round(v, 4) for k, v in phases.items()} }, overlap "
+            f"efficiency {eff:.3f}, peak device memory {peak / 2**30:.2f} "
+            f"GiB, segment-reduce launches per step {per_step}, wall "
+            f"{wall:.1f}s")
+        if mode == "serial":
+            for s in sms:
+                total = (s.sample_time_host + s.fetch_time_host
+                         + s.transfer_time_host + s.compute_time_host)
+                assert total >= s.step_wall_host * (1 - 1e-9), (key, s)
+                assert s.overlap_efficiency == 0.0
+        if backend == "scatter":
+            assert not launches, f"{key} launched {launches}"
+            return
+        want = expected_minibatch_launches(spec, plan, tiling, 4, len(sms))
+        assert dict(launches) == want, (
+            f"{key}: launches {dict(launches)}, expected {want}")
+        main_launches[f"minibatch {model} {mode}"] = launches
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with recording(spmm) as launches:
+        run = gnn_train.run(MB_WIDTH + ["--model", "gat",
+                                        "--agg-backend", "tiled"])
+    base = run.trainer
+    assert len(run.step_metrics) >= MB_STEPS and run.estimate.step_time > 0
+    record(("gat", "tiled", "serial"), base.spec, base.plan,
+           run.step_metrics, launches, run.peak_memory,
+           time.perf_counter() - t0)
+    say(f"[minibatch] modeled paper-cluster step (minibatch_step, last "
+        f"step): {run.estimate.step_time * 1e3:.1f} ms")
+    del run
+    sage = dataclasses.replace(base.spec, model="sage")
+    specs = {("gat", "tiled"): base.spec,
+             ("gat", "scatter"): dataclasses.replace(base.spec,
+                                                     agg_backend="scatter"),
+             ("sage", "tiled"): sage,
+             ("sage", "scatter"): dataclasses.replace(sage,
+                                                      agg_backend="scatter")}
+
+    def fresh(spec, overlap, repeatable=True):
+        params = models.init_params(spec, seed=0, device=base.device)
+        return dataclasses.replace(
+            base, spec=spec, params=params, opt_state=optim.adam_init(params),
+            overlap=overlap, prefetch_depth=2, repeatable=repeatable)
+
+    todo = ([(m, b, "serial") for m, b in specs if (m, b) != ("gat", "tiled")]
+            + [(m, b, "overlap") for m, b in specs])
+    for key in todo:
+        t0 = time.perf_counter()
+        sms, launches, peak = mb_steps(torch, spmm,
+                                       fresh(specs[key[:2]],
+                                             key[2] == "overlap"), MB_STEPS)
+        record(key, specs[key[:2]], base.plan, sms, launches, peak,
+               time.perf_counter() - t0)
+
+    for model in ("gat", "sage"):
+        a = runs[model, "tiled", "serial"]["losses"][:MB_STEPS]
+        b = runs[model, "scatter", "serial"]["losses"]
+        diff = hold_losses(a, b, f"mini-batch {model} tiled vs scatter")
+        runs[model, "tiled", "serial"]["max_abs_dloss_vs_scatter"] = diff
+        say(f"[minibatch] {model} tiled vs scatter: max |dloss| {diff:.3g} "
+            f"over {len(a)} steps (limit {LOSS_TOL})")
+    a = runs["gat", "tiled", "serial"]["losses"][:MB_STEPS]
+    b = runs["gat", "scatter", "serial"]["losses"]
+    try:
+        hold_losses(a[1:], b[:-1], "shifted by one step")
+    except AssertionError:
+        say("[minibatch] the check rejects the tiled trajectory shifted by "
+            "one step against scatter's")
+    else:
+        raise AssertionError("the loss check passes a shifted trajectory")
+    for model, backend in specs:
+        serial = runs[model, backend, "serial"]["losses"][:MB_STEPS]
+        over = runs[model, backend, "overlap"]["losses"]
+        assert over == serial, (
+            f"{model} {backend}: overlapped {over} != serial {serial}")
+        say(f"[minibatch] {model} {backend}: overlapped == serial bit for "
+            f"bit over {MB_STEPS} steps")
+
+    # what the repeatable step repairs, and what it costs (the batches are
+    # drawn overlapped: the same batches, sampled on four threads)
+    tr = fresh(base.spec, overlap=True)
+    batches = [tr.engine.next_batch()[0] for _ in range(MB_COST_STEPS)]
+    tr.close()
+    probe = determinism_probe(torch, ref, minibatch, batches[0], base.plan)
+    hot = hot_row_probe(torch, ref, minibatch, batches[0], base.plan)
+    cost = {}
+    for (model, backend), spec in specs.items():
+        seconds, losses = {True: [], False: []}, {True: [], False: []}
+        for on in (True, False, False, True):
+            tr = fresh(spec, overlap=False, repeatable=on)
+            ls, ts = [], []
+            for pb in batches:
+                t0 = time.perf_counter()
+                ls.append(tr.device_step(pb.stacked))
+                ts.append(time.perf_counter() - t0)
+            losses[on].append(ls)
+            seconds[on].append(float(np.median(ts[1:])))
+        assert losses[True][0] == losses[True][1], (model, backend, losses)
+        repeats = losses[False][0] == losses[False][1]
+        on_s, off_s = np.mean(seconds[True]), np.mean(seconds[False])
+        cost[f"{model} {backend}"] = {
+            "warm_device_step_seconds_repeatable": seconds[True],
+            "warm_device_step_seconds_plain": seconds[False],
+            "ratio": float(on_s / off_s), "plain_repeats": repeats,
+            "losses": {str(k): v for k, v in losses.items()}}
+        say(f"[minibatch] {model} {backend}: device step on "
+            f"{MB_COST_STEPS} fixed batches, warm (median of steps 2-"
+            f"{MB_COST_STEPS}) with the repeatable step {seconds[True]} s, "
+            f"without {seconds[False]} s (A B B A), ratio "
+            f"{on_s / off_s:.4f}; without it two runs "
+            f"{'repeat bit for bit' if repeats else 'differ'}")
+    del batches, base
+
+    small = ["--graph", "OR", "--scale", "0.02", "--k", "4", "--model", "gat",
+             "--agg-backend", "tiled", "--features", "32", "--hidden", "32",
+             "--layers", "3", "--regime", "minibatch", "--partitioner",
+             "metis", "--epochs", "5"]
+    card = gnn_train.run(small + ["--device", "cuda"]).losses
+    cpu = gnn_train.run(small + ["--device", "cpu"]).losses
+    diff = hold_losses(card, cpu, "small mini-batch gat, card vs cpu")
+    say(f"[minibatch] small gat (OR 0.02, width 32, {len(card)} steps), card "
+        f"vs cpu: max |dloss| {diff:.3g}")
+    results = {" ".join(k): r for k, r in runs.items()}
+    results["small_card_vs_cpu_max_abs_dloss"] = diff
+    results["determinism_probe"] = probe
+    results["hot_row_probe_ms"] = hot
+    results["repeatable_cost"] = cost
     return results, main_launches
 
 
@@ -1209,10 +1578,11 @@ def _profiled(torch, fn, what: str) -> None:
 
 def phase_profile(torch, gnn_serve, gnn_train) -> None:
     """`--profile`: the GAT main path's layer-wise pass, run again warm,
-    then once under torch.profiler; then a GAT tiled training step at the
-    training phase's widths, after two warm steps, once under the
-    profiler. Prints warm seconds, device time by op, and each profiled
-    run's device idle share."""
+    then once under torch.profiler; then a GAT tiled full-batch training
+    step at the training phase's widths, after two warm steps, once under
+    the profiler; then a serial GAT tiled mini-batch step at phase 8's
+    configuration, likewise. Prints warm seconds, device time by op, and
+    each profiled run's device idle share."""
     with torch.inference_mode():
         out = gnn_serve.run(FULL_WIDTH + ["--requests", "1", "--model",
                                           "gat", "--agg-backend", "tiled"])
@@ -1225,6 +1595,23 @@ def phase_profile(torch, gnn_serve, gnn_train) -> None:
     run = gnn_train.run(TRAIN_WIDTH + ["--epochs", "2", "--model", "gat",
                                        "--agg-backend", "tiled"])
     _profiled(torch, run.trainer.train_step, "training step")
+    del run
+    torch.cuda.empty_cache()
+    mb = gnn_train.run(MB_WIDTH + ["--epochs", "0", "--model", "gat",
+                                   "--agg-backend", "tiled"]).trainer
+    try:
+        for _ in range(2):
+            sm = mb.train_step()
+            say(f"[profile] warm-up mini-batch step: wall "
+                f"{sm.step_wall_host:.4f}s, sample {sm.sample_time_host:.4f} "
+                f"fetch {sm.fetch_time_host:.4f} transfer "
+                f"{sm.transfer_time_host:.4f} compute "
+                f"{sm.compute_time_host:.4f}")
+        _profiled(torch, mb.train_step,
+                  "mini-batch step (serial: host phases, then the device "
+                  "step)")
+    finally:
+        mb.close()
 
 
 # --------------------------------------------------------- aggregate host
@@ -1344,7 +1731,9 @@ def main() -> int:
     from repro_torch.kernels import segment_spmm as spmm
     from repro_torch.kernels import tiling
     from repro_torch import optim
-    from repro_torch.gnn import fullbatch, models
+    from repro_torch.core.vertex_partition import partition_vertices
+    from repro_torch.gnn import fullbatch, minibatch, models
+    from repro_torch.kernels import ref
     from repro_torch.launch import gnn_serve, gnn_train
 
     resolve_device("cuda")
@@ -1362,6 +1751,9 @@ def main() -> int:
     say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
     launches, seen = phase_serve(torch, spmm, gnn_serve)
     say(f"[time] serve {time.perf_counter() - t_start:.1f}s")
+    minibatch_shapes(torch, gnn_train, minibatch, partition_vertices, tiling,
+                     seen)
+    say(f"[time] mini-batch shapes {time.perf_counter() - t_start:.1f}s")
     shapes = phase_shapes(torch, spmm, seen)
     say(f"[time] shapes {time.perf_counter() - t_start:.1f}s")
     seen.clear()
@@ -1369,12 +1761,16 @@ def main() -> int:
     say(f"[time] attention {time.perf_counter() - t_start:.1f}s")
     train, train_launches = phase_train(torch, spmm, ops, tiling, gnn_train,
                                         fullbatch, models, optim)
-    for run, n in train_launches.items():
+    say(f"[time] train {time.perf_counter() - t_start:.1f}s")
+    train["minibatch"], mb_launches = phase_minibatch(
+        torch, spmm, ref, tiling, gnn_train, minibatch, models, optim)
+    say(f"[time] minibatch {time.perf_counter() - t_start:.1f}s")
+    for run, n in {**train_launches, **mb_launches}.items():
         assert set(n) <= set(shapes), (
             f"{run} launched the kernel at shapes phase 5 did not time: "
             f"{sorted(set(n) - set(shapes))}")
     launches.update(train_launches)
-    say(f"[time] train {time.perf_counter() - t_start:.1f}s")
+    launches.update(mb_launches)
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -1384,8 +1780,8 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_spmm.py:59",
-            # launches at this shape over the GAT and SAGE tiled serving
-            # and training runs
+            # launches at this shape over the GAT and SAGE tiled serving,
+            # full-batch and mini-batch training runs
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "E_tiled": row["E_tiled"],

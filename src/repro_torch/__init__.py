@@ -8,5 +8,6 @@ device layer is PyTorch, and every aggregate runs the hand-written CUDA
 segment-reduce kernel (`kernels/csrc/segment_reduce.cu`) on CUDA tensors.
 
 Entry points: `python -m repro_torch.launch.gnn_serve` (GNN serving) and
-`python -m repro_torch.launch.gnn_train` (full-batch training).
+`python -m repro_torch.launch.gnn_train` (full-batch and mini-batch
+training).
 """

@@ -1,10 +1,11 @@
-# Copy of the serving and full-batch parts of repro/core/cost_model.py
-# (NumPy only): fp32 wire only, edge partition books only.
-# tests/test_torch_host.py holds `serve_request` and `fullbatch_epoch` equal
-# to the originals.
-"""Cluster cost model — prices one serving micro-batch and one full-batch
-training epoch on the paper's 32-machine cluster (§3: 8-core Haswell
-2.4 GHz, 64 GB RAM).
+# Copy of the serving, full-batch and mini-batch parts of
+# repro/core/cost_model.py (NumPy only): fp32 wire only, edge partition books
+# only for full batch. tests/test_torch_host.py holds `serve_request`,
+# `fullbatch_epoch`, `minibatch_step` and `overlapped_step_time` equal to the
+# originals.
+"""Cluster cost model — prices one serving micro-batch, one full-batch
+training epoch and one mini-batch training step on the paper's 32-machine
+cluster (§3: 8-core Haswell 2.4 GHz, 64 GB RAM).
 
 The inputs (per-partition edges, vertices and replica rows; per-batch
 input vertices, remote vertices, cache misses, MFG edges) are measured
@@ -27,8 +28,9 @@ from repro_torch.core.partition_book import EdgePartitionBook
 if TYPE_CHECKING:
     from repro_torch.gnn.models import GNNSpec
 
-__all__ = ["ClusterSpec", "FullBatchEstimate", "PAPER_CLUSTER",
-           "ServeEstimate", "fullbatch_epoch", "serve_request"]
+__all__ = ["ClusterSpec", "FullBatchEstimate", "MiniBatchEstimate",
+           "PAPER_CLUSTER", "ServeEstimate", "fullbatch_epoch",
+           "minibatch_step", "overlapped_step_time", "serve_request"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +167,109 @@ def fullbatch_epoch(
         oom=bool((memory > cluster.memory).any()),
         wire_bytes=wire_bytes,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class MiniBatchEstimate:
+    step_time: float          # serial phases: straggler host+compute + allreduce
+    sample_time: np.ndarray   # [k]
+    fetch_time: np.ndarray    # [k]
+    compute_time: np.ndarray  # [k]
+    fetch_bytes: np.ndarray   # [k]
+    straggler: int            # argmax worker
+    memory: np.ndarray        # [k]
+    allreduce_time: float = 0.0  # gradient all-reduce (shared by both modes)
+    # [k] feature-fetch bytes on the wire; == fetch_bytes (fp32 wire)
+    wire_bytes: Optional[np.ndarray] = None
+
+
+def minibatch_step(
+    input_vertices: np.ndarray,
+    remote_vertices: np.ndarray,
+    edges: np.ndarray,
+    owned_vertices: np.ndarray,
+    spec: "GNNSpec",
+    cluster: ClusterSpec = PAPER_CLUSTER,
+    seeds_per_worker: int = 64,
+    *,
+    remote_miss_vertices: Optional[np.ndarray] = None,
+    cached_vertices: Optional[np.ndarray] = None,
+    codec=None,
+) -> MiniBatchEstimate:
+    """DistDGL step estimate from real per-worker sampled-batch metrics.
+
+    The paper's phase structure: sampling (host; remote adjacency accesses
+    cost network latency), feature loading (remote vertices cross the
+    network), forward+backward (dense flops on the sampled block), update
+    (negligible). Step time = slowest worker (straggler) + gradient
+    all-reduce.
+
+    With a per-worker feature cache (gnn/feature_store.py), only cache
+    *misses* cross the network: pass `remote_miss_vertices` [k] to price the
+    fetch phase from missed bytes (default: every remote vertex misses, the
+    uncached DistDGL behavior) and `cached_vertices` [k] to charge the cache
+    copies to worker memory. Sampling still pays `remote_vertices` adjacency
+    costs — the cache holds features, not adjacency. fp32 wire only: 4
+    bytes an element.
+    """
+    if codec not in (None, "fp32"):
+        raise NotImplementedError(f"wire codec {codec!r} is not yet ported; "
+                                  "this port has fp32 only")
+    input_vertices = input_vertices.astype(np.float64)
+    remote = remote_vertices.astype(np.float64)
+    edges = edges.astype(np.float64)
+    miss = (remote if remote_miss_vertices is None
+            else remote_miss_vertices.astype(np.float64))
+
+    sample = (edges / cluster.sample_rate + remote * cluster.remote_adj_cost
+              + cluster.sample_hop_overhead * spec.num_layers)
+    fetch_bytes = miss * spec.feature_dim * 4
+    wire_bytes = miss * spec.feature_dim * 4.0
+    fetch = wire_bytes / cluster.net_bw + cluster.net_latency
+
+    # dense flops: each sampled edge moves a d-dim message once per layer;
+    # each block vertex gets the per-vertex NN update.
+    nn = input_vertices * _model_flops_per_vertex(spec) * 3.0
+    agg = edges * 2.0 * max(spec.feature_dim, spec.hidden_dim) * 3.0
+    compute = (nn + agg) / cluster.flops
+
+    per_worker = sample + fetch + compute
+    straggler = int(np.argmax(per_worker))
+
+    n_params = sum(din * dout for din, dout in spec.dims()) * 2
+    allreduce = (2 * n_params * 4.0 / cluster.net_bw + cluster.net_latency)
+
+    f = spec.feature_dim
+    memory = (
+        owned_vertices.astype(np.float64) * f * 4          # local feature shard
+        + input_vertices * f * 4                            # fetched cache
+        + input_vertices * spec.hidden_dim * 4 * spec.num_layers * 2
+    )
+    if cached_vertices is not None:                        # static feature cache
+        memory = memory + cached_vertices.astype(np.float64) * f * 4
+    return MiniBatchEstimate(
+        step_time=float(per_worker.max() + allreduce),
+        sample_time=sample,
+        fetch_time=fetch,
+        compute_time=compute,
+        fetch_bytes=fetch_bytes,
+        straggler=straggler,
+        memory=memory,
+        allreduce_time=float(allreduce),
+        wire_bytes=wire_bytes,
+    )
+
+
+def overlapped_step_time(est: MiniBatchEstimate) -> float:
+    """Pipelined step time from a serial `minibatch_step` estimate.
+
+    Prefetch (gnn/pipeline.py) hides the host phases behind device compute,
+    so in steady state each worker's step costs max(sample + fetch, compute)
+    instead of their sum; the cluster step is still gated by the slowest
+    worker plus the gradient all-reduce, which no prefetch hides. The
+    model-side twin of the measured `StepMetrics.overlap_efficiency`."""
+    host = est.sample_time + est.fetch_time
+    return float(np.maximum(host, est.compute_time).max() + est.allreduce_time)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,2 +1,3 @@
 """GNN layers, the loss, halo sync, full-batch training, layer-wise
-inference, the MFG forward, and the NumPy sampler / row store."""
+inference, mini-batch training (the MFG forward, the batch pipeline), and
+the NumPy sampler / row store."""

@@ -18,8 +18,9 @@ static cache of remote vertices selected by one of four policies:
 `gather()` splits a batch's input vertices into {local, cache-hit,
 remote-miss} and returns the assembled row block plus a `FetchStats` record
 (counts and bytes per class). Only *miss* bytes cross the network —
-`core/cost_model.py` prices the serving fetch phase (`serve_request`) from
-them.
+`core/cost_model.py` prices the training fetch phase (`minibatch_step`) and
+the serving fetch phase (`serve_request`) from them. `FeatureStore` is the
+feature-flavored front the mini-batch trainer loads its input rows through.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from repro_torch.core.partition_book import VertexPartitionBook
 
 __all__ = [
     "CACHE_POLICIES",
+    "FeatureStore",
     "FetchStats",
     "RowStore",
     "select_cache_vertices",
@@ -189,6 +191,24 @@ class RowStore:
             rows=rows,
         )
 
+    @classmethod
+    def from_policy(
+        cls,
+        graph: Graph,
+        book: VertexPartitionBook,
+        *,
+        policy: str = "none",
+        budget: int = 0,
+        rows: Optional[np.ndarray] = None,
+        row_dim: Optional[int] = None,
+        seed: int = 0,
+    ) -> "RowStore":
+        """Select the per-worker caches with `select_cache_vertices`, then
+        `create` (which subclasses do NOT override, unlike `build`)."""
+        ids = select_cache_vertices(graph, book, policy, budget, seed=seed)
+        return cls.create(book, ids, rows=rows, row_dim=row_dim,
+                          policy=policy, budget=budget)
+
     def cached_ids(self, worker: int) -> np.ndarray:
         """Global ids cached at `worker` (sorted, cache-row order)."""
         return self.cache_ids[worker, : self.cache_sizes[worker]]
@@ -233,3 +253,37 @@ class RowStore:
         out[hit] = self.cache_rows[worker, slot]
         out[miss] = self.rows[ids[miss]]                            # remote fetch
         return out, self._stats_of(ids, local, hit, miss)
+
+
+class FeatureStore(RowStore):
+    """Feature-flavored `RowStore` (the DistDGL feature-loading phase): the
+    same store and accounting, with graph-first `build` and
+    `features` / `feature_dim`."""
+
+    @classmethod
+    def build(
+        cls,
+        graph: Graph,
+        book: VertexPartitionBook,
+        *,
+        policy: str = "none",
+        budget: int = 0,
+        features: Optional[np.ndarray] = None,
+        feature_dim: Optional[int] = None,
+        seed: int = 0,
+    ) -> "FeatureStore":
+        """Build the store. With `features=None` the store is accounting-only
+        (split/stats work, gather does not) — `feature_dim` then sizes the
+        byte metrics."""
+        return cls.from_policy(
+            graph, book, policy=policy, budget=budget,
+            rows=features, row_dim=feature_dim, seed=seed,
+        )
+
+    @property
+    def features(self) -> Optional[np.ndarray]:
+        return self.rows
+
+    @property
+    def feature_dim(self) -> int:
+        return self.row_dim

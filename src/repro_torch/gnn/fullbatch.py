@@ -36,7 +36,7 @@ from repro_torch.gnn.sync import (
     make_sync,
     sync_bytes_per_round,
 )
-from repro_torch.optim import AdamState, adam_init, adam_update
+from repro_torch.optim import AdamState, adam_init, adam_step, leaves
 
 
 def build_book(
@@ -85,10 +85,6 @@ def make_step_fns(spec: GNNSpec, sync_mode: str, k: int):
     return loss, forward
 
 
-def _leaves(params) -> list:
-    return [t for layer in params["layers"] for t in layer.values()]
-
-
 @dataclasses.dataclass
 class FullBatchTrainer:
     spec: GNNSpec
@@ -134,17 +130,10 @@ class FullBatchTrainer:
         update. Reading it waits for the whole step, update included (one
         stream)."""
         loss_of, _ = self._step_fns
-        params = {"layers": [
-            {name: t.detach().requires_grad_() for name, t in layer.items()}
-            for layer in self.params["layers"]]}
-        loss = loss_of(params, self.blocks)
-        flat = torch.autograd.grad(loss, _leaves(params))
-        it = iter(flat)
-        grads = {"layers": [{name: next(it) for name in layer}
-                            for layer in params["layers"]]}
-        self.params, self.opt_state = adam_update(
-            grads, self.opt_state, self.params, lr=self.lr)
-        return float(loss.detach())
+        loss, self.params, self.opt_state = adam_step(
+            lambda params: loss_of(params, self.blocks), self.params,
+            self.opt_state, lr=self.lr)
+        return float(loss)
 
     def forward_logits_global(self) -> np.ndarray:
         """Master-row logits gathered to a global [V, C] array (testing)."""
@@ -168,7 +157,7 @@ class FullBatchTrainer:
                 per = sync_bytes_per_round(self.book, d, self.sync_mode)
                 total += per * 2  # fwd + bwd
         # gradient all-reduce of the (replicated) model parameters
-        n_params = sum(int(np.prod(p.shape)) for p in _leaves(self.params))
+        n_params = sum(int(np.prod(p.shape)) for p in leaves(self.params))
         total += 2 * self.book.k * n_params * 4
         return total
 

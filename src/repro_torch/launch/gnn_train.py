@@ -1,20 +1,30 @@
 """The training CLI: partition a graph, train a GNN over the partitions.
 
-Twin of repro/launch/gnn_train.py for its full-batch regime (DistGNN-style:
-edge partitioning, replica sync over the stacked partitions, the
-reference's Adam). It prints what the reference prints: the graph, the
-partitioning time with its replication factor and balances, the
-paper-cluster epoch estimate (`cost_model.fullbatch_epoch`, modeled, not a
-device time), and per epoch the loss and the step's seconds on the device.
+Twin of repro/launch/gnn_train.py, both regimes, fp32:
+
+  --regime fullbatch  DistGNN-style: edge partitioning, replica sync over
+                      the stacked partitions; one step is one epoch
+  --regime minibatch  DistDGL-style: vertex partitioning, per-worker
+                      sampling and feature loading (gnn/pipeline.py, serial
+                      or `--overlap`), `train_count // batch` steps an epoch
+
+It prints what the reference prints: the graph, the partitioning time with
+its quality metrics, the paper-cluster estimate (`fullbatch_epoch` /
+`minibatch_step`: modeled, not a device time) and per epoch the loss
+(mini batch: with remote vertices a step, the cache hit rate and, under
+`--overlap`, the overlap efficiency); besides, the measured seconds on the
+device: each step's (mini batch: with its host phases) and the warm step.
 
 Runs on the card unless `--device cpu` is given; with `--device cuda` and
 no GPU it raises. Features, labels and the training mask are drawn from
 `np.random.default_rng(seed)` in the reference's order, so both CLIs train
-on the same data from the same weights. `--regime minibatch` is not yet
-ported.
+on the same data from the same weights. Checkpoints, traces, study rows and
+the lossy wire codecs are not yet ported.
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --partitioner hep100 --k 4 --model sage --epochs 5
+  PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
+      --scale 0.05 --partitioner metis --k 4 --regime minibatch --batch 256
 """
 
 from __future__ import annotations
@@ -23,17 +33,31 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.cost_model import FullBatchEstimate, fullbatch_epoch
+from repro_torch.core.cost_model import (
+    FullBatchEstimate,
+    MiniBatchEstimate,
+    fullbatch_epoch,
+    minibatch_step,
+)
 from repro_torch.core.device import DEVICES, resolve_device
 from repro_torch.core.edge_partition import EDGE_PARTITIONERS, partition_edges
 from repro_torch.core.graph import Graph, paper_graph
-from repro_torch.core.metrics import edge_partition_metrics
+from repro_torch.core.metrics import (
+    edge_partition_metrics,
+    vertex_partition_metrics,
+)
+from repro_torch.core.vertex_partition import (
+    VERTEX_PARTITIONERS,
+    partition_vertices,
+)
+from repro_torch.gnn.feature_store import CACHE_POLICIES
 from repro_torch.gnn.fullbatch import FullBatchTrainer
+from repro_torch.gnn.minibatch import MiniBatchTrainer, StepMetrics
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sync import SYNC_MODES
 
@@ -44,45 +68,70 @@ from repro_torch.gnn.sync import SYNC_MODES
 # free. The allocator reads it once, when CUDA starts, so `main` sets it for
 # the process; a library caller of `run` chooses its own.
 TRAIN_ALLOC_CONF = "expandable_segments:True"
+# each regime's Adam step size when --lr is not given: the reference
+# trainers' defaults (FullBatchTrainer.build 1e-2, MiniBatchTrainer.build
+# 1e-3; the reference CLI passes neither)
+DEFAULT_LR = {"fullbatch": 1e-2, "minibatch": 1e-3}
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.gnn_train",
         description="Partition a graph and train a GNN over the partitions "
-                    "(full batch, replica sync).")
+                    "(full batch with replica sync, or mini batch with "
+                    "sampling and feature loading).")
     ap.add_argument("--device", default="cuda", choices=list(DEVICES),
                     help="where the model trains; cuda raises if no GPU is "
                          "visible")
     ap.add_argument("--graph", default="OR", choices=["HO", "DI", "EN", "EU", "OR"])
     ap.add_argument("--scale", type=float, default=0.05)
     ap.add_argument("--partitioner", default="hep100",
-                    help="edge partitioner (full batch)")
+                    help="edge partitioner (full batch) or vertex "
+                         "partitioner (mini batch)")
     ap.add_argument("--k", type=int, default=4)
     ap.add_argument("--model", default="sage", choices=["sage", "gcn", "gat"])
     ap.add_argument("--regime", default="fullbatch",
                     choices=["fullbatch", "minibatch"],
-                    help="fullbatch: DistGNN-style; minibatch (DistDGL-"
-                         "style) is not yet ported")
+                    help="fullbatch: DistGNN-style; minibatch: DistDGL-style")
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--features", type=int, default=64)
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--classes", type=int, default=16)
     ap.add_argument("--epochs", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=256,
+                    help="global mini-batch (seed vertices a step over all "
+                         "workers; mini batch)")
     ap.add_argument("--sync-mode", default="halo", choices=list(SYNC_MODES),
-                    help="halo: static-routed replica exchange; local: no "
-                         "exchange (the k=1 oracle; at k > 1 the partial "
-                         "aggregates stay partial)")
+                    help="full batch: halo: static-routed replica exchange; "
+                         "local: no exchange (the k=1 oracle; at k > 1 the "
+                         "partial aggregates stay partial)")
     ap.add_argument("--agg-backend", default="scatter",
                     choices=["scatter", "tiled", "pallas"],
                     help="scatter: index_add_/scatter_reduce_; tiled: the "
                          "CUDA segment-reduce kernel on the card (its plain "
                          "version on the CPU); pallas: always the kernel")
-    ap.add_argument("--lr", type=float, default=1e-2,
-                    help="Adam step size; the default is the reference "
-                         "trainer's (its CLI has no flag). At widths 512 "
-                         "it diverges; 1e-3, the default of Adam's paper "
-                         "(Kingma & Ba, ICLR 2015, Algorithm 1), does not")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="dynamic seed rebalancing (straggler mitigation; "
+                         "mini batch)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="pipelined mini-batch execution (gnn/pipeline.py): "
+                         "sampling, feature loading and the copy for step "
+                         "t+1 run on a producer thread while the device "
+                         "computes step t; same batches as serial")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="batches prepared ahead of the device step "
+                         "(bounded queue; only read with --overlap)")
+    ap.add_argument("--cache-policy", default="none",
+                    choices=list(CACHE_POLICIES),
+                    help="per-worker remote-feature cache policy (mini batch)")
+    ap.add_argument("--cache-budget", type=int, default=0,
+                    help="cached remote vertices per worker (mini batch)")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="Adam step size; default the reference trainer's "
+                         "(full batch 1e-2, mini batch 1e-3). At widths 512 "
+                         "full batch diverges at 1e-2; 1e-3, the default of "
+                         "Adam's paper (Kingma & Ba, ICLR 2015, Algorithm "
+                         "1), does not")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -93,30 +142,45 @@ class TrainRun:
 
     graph: Graph
     spec: GNNSpec
-    assignment: np.ndarray       # the edge partition
-    trainer: FullBatchTrainer
-    estimate: FullBatchEstimate  # modeled on the paper's cluster
-    losses: list                 # per epoch, before its update
+    assignment: np.ndarray       # the edge (full batch) / vertex partition
+    trainer: Union[FullBatchTrainer, MiniBatchTrainer]
+    # modeled on the paper's cluster; mini batch: the last epoch's last step
+    estimate: Union[FullBatchEstimate, MiniBatchEstimate]
+    losses: list                 # per step, before its update (full batch:
+                                 # one step an epoch)
     step_seconds: list           # host clock around each step, synced
     peak_memory: Optional[int]   # bytes, torch.cuda.max_memory_allocated
                                  # over the run; None on the CPU
+    step_metrics: list = dataclasses.field(default_factory=list)
+    # mini batch: each step's `StepMetrics`
 
 
 def run(argv: Optional[list] = None) -> TrainRun:
     """Parse `argv` (default: sys.argv[1:]) and train; prints a report."""
     args = parser().parse_args(argv)
-    if args.regime == "minibatch":
-        raise NotImplementedError(
-            "--regime minibatch (DistDGL-style) is not yet ported; use "
-            "--regime fullbatch")
-    if args.partitioner not in EDGE_PARTITIONERS:
-        raise ValueError(
-            f"full batch (DistGNN) uses edge partitioners: "
-            f"{sorted(EDGE_PARTITIONERS)}; got {args.partitioner!r}")
+    allowed = (EDGE_PARTITIONERS if args.regime == "fullbatch"
+               else VERTEX_PARTITIONERS)
+    if args.partitioner not in allowed:
+        kind = ("full batch (DistGNN) uses edge" if args.regime == "fullbatch"
+                else "mini batch (DistDGL) uses vertex")
+        raise ValueError(f"{kind} partitioners: {sorted(allowed)}; got "
+                         f"{args.partitioner!r}")
+    lr = DEFAULT_LR[args.regime] if args.lr is None else args.lr
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    g, feats, labels, train_mask, spec = problem(args)
+    train = _minibatch if args.regime == "minibatch" else _fullbatch
+    out = train(args, device, lr, g, spec, feats, labels, train_mask)
+    if out.peak_memory is not None:
+        print(f"[gnn] peak device memory {out.peak_memory / 2**30:.2f} GiB")
+    return out
 
+
+def problem(args: argparse.Namespace):
+    """(graph, features, labels, train mask, spec) of parsed `args`: the
+    reference CLI's draws from `np.random.default_rng(seed)`, in its
+    order."""
     g = paper_graph(args.graph, scale=args.scale, seed=0)
     print(f"[gnn] graph {args.graph}: {g.num_vertices} vertices, "
           f"{g.num_edges} edges")
@@ -127,7 +191,16 @@ def run(argv: Optional[list] = None) -> TrainRun:
     spec = GNNSpec(model=args.model, feature_dim=args.features,
                    hidden_dim=args.hidden, num_classes=args.classes,
                    num_layers=args.layers, agg_backend=args.agg_backend)
+    return g, feats, labels, train_mask, spec
 
+
+def _peak(device: torch.device) -> Optional[int]:
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+
+
+def _fullbatch(args, device, lr, g, spec, feats, labels,
+               train_mask) -> TrainRun:
     t0 = time.perf_counter()
     assignment = partition_edges(g, args.k, args.partitioner, seed=args.seed)
     pt = time.perf_counter() - t0
@@ -137,7 +210,7 @@ def run(argv: Optional[list] = None) -> TrainRun:
           f"edge_bal={m.edge_balance:.2f} vertex_bal={m.vertex_balance:.2f}")
     tr = FullBatchTrainer.build(
         g, assignment, args.k, spec, feats, labels, train_mask,
-        sync_mode=args.sync_mode, seed=args.seed, lr=args.lr, device=device)
+        sync_mode=args.sync_mode, seed=args.seed, lr=lr, device=device)
     est = fullbatch_epoch(tr.book, spec)
     print(f"[gnn] paper-cluster epoch estimate: {est.epoch_time*1e3:.1f} ms, "
           f"comm {est.comm_bytes.sum()/2**20:.1f} MiB "
@@ -153,13 +226,73 @@ def run(argv: Optional[list] = None) -> TrainRun:
         losses.append(loss)
         print(f"[gnn] epoch {epoch:3d} loss {loss:.4f} "
               f"({seconds[-1]:.2f}s on {device})")
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else None)
-    if peak is not None:
-        print(f"[gnn] peak device memory {peak / 2**30:.2f} GiB")
     return TrainRun(graph=g, spec=spec, assignment=assignment, trainer=tr,
                     estimate=est, losses=losses, step_seconds=seconds,
-                    peak_memory=peak)
+                    peak_memory=_peak(device))
+
+
+def _minibatch(args, device, lr, g, spec, feats, labels,
+               train_mask) -> TrainRun:
+    t0 = time.perf_counter()
+    assignment = partition_vertices(g, args.k, args.partitioner,
+                                    seed=args.seed, train_mask=train_mask)
+    pt = time.perf_counter() - t0
+    m = vertex_partition_metrics(g, assignment, args.k, train_mask)
+    print(f"[gnn] partitioned in {pt:.2f}s: edge_cut={m.edge_cut:.3f} "
+          f"vertex_bal={m.vertex_balance:.2f}")
+    steps_per_epoch = max(int(train_mask.sum()) // args.batch, 1)
+    tr = MiniBatchTrainer.build(
+        g, assignment, args.k, spec, feats, labels, train_mask,
+        device=device, global_batch=args.batch, seed=args.seed, lr=lr,
+        rebalance=args.rebalance, cache_policy=args.cache_policy,
+        cache_budget=args.cache_budget, overlap=args.overlap,
+        prefetch_depth=args.prefetch_depth)
+    if args.cache_budget:
+        print(f"[gnn] feature cache: policy={args.cache_policy} "
+              f"budget={args.cache_budget}/worker "
+              f"(filled {tr.store.cache_sizes.tolist()})")
+    sms: "list[StepMetrics]" = []
+    est = None
+    try:
+        for epoch in range(args.epochs):
+            t1 = time.perf_counter()
+            epoch_sms = []
+            for step in range(steps_per_epoch):
+                sm = tr.train_step()
+                epoch_sms.append(sm)
+                print(f"[gnn]   step {len(sms) + step:4d} loss "
+                      f"{sm.loss:.4f} wall {sm.step_wall_host:.4f}s: sample "
+                      f"{sm.sample_time_host:.4f} fetch "
+                      f"{sm.fetch_time_host:.4f} transfer "
+                      f"{sm.transfer_time_host:.4f} compute "
+                      f"{sm.compute_time_host:.4f} wait "
+                      f"{sm.queue_wait_host:.4f} (s, host clock, {device})")
+            sms += epoch_sms
+            est = minibatch_step(
+                sm.input_vertices, sm.remote_vertices, sm.edges,
+                tr.book.sizes, spec, remote_miss_vertices=sm.remote_misses,
+                cached_vertices=tr.store.cache_sizes)
+            overlap_note = ""
+            if args.overlap:
+                eff = np.mean([s.overlap_efficiency for s in epoch_sms])
+                overlap_note = f"overlap_eff {eff:.2f} "
+            # the run's first step is cold (allocator, kernel builds)
+            warm = [s.step_wall_host for s in sms[1:]] or [sms[0].step_wall_host]
+            print(f"[gnn] epoch {epoch:3d} loss "
+                  f"{np.mean([s.loss for s in epoch_sms]):.4f} "
+                  f"remote/step "
+                  f"{np.mean([s.remote_vertices.sum() for s in epoch_sms]):.0f} "
+                  f"hit_rate {np.mean([s.hit_rate for s in epoch_sms]):.2f} "
+                  f"{overlap_note}"
+                  f"cluster step est {est.step_time*1e3:.1f} ms (modeled) "
+                  f"| warm step {np.median(warm):.4f}s on {device} "
+                  f"({time.perf_counter()-t1:.2f}s)")
+    finally:
+        tr.close()
+    return TrainRun(graph=g, spec=spec, assignment=assignment, trainer=tr,
+                    estimate=est, losses=[s.loss for s in sms],
+                    step_seconds=[s.step_wall_host for s in sms],
+                    peak_memory=_peak(device), step_metrics=sms)
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -1,5 +1,11 @@
 """Optimizers as pure functions on the `{"layers": [...]}` parameter dict."""
 
-from repro_torch.optim.adam import AdamState, adam_init, adam_update
+from repro_torch.optim.adam import (
+    AdamState,
+    adam_init,
+    adam_step,
+    adam_update,
+    leaves,
+)
 
-__all__ = ["AdamState", "adam_init", "adam_update"]
+__all__ = ["AdamState", "adam_init", "adam_step", "adam_update", "leaves"]

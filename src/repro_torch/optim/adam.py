@@ -8,7 +8,7 @@ float32 from an int32 step, then delta = (m / c1) / (sqrt(v / c2) + eps).
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -27,6 +27,11 @@ def _map(fn, *trees) -> Params:
     return {"layers": [
         {name: fn(*(t["layers"][li][name] for t in trees)) for name in layer}
         for li, layer in enumerate(trees[0]["layers"])]}
+
+
+def leaves(params: Params) -> list:
+    """The tensors of `params`, layer by layer in name order."""
+    return [t for layer in params["layers"] for t in layer.values()]
 
 
 def adam_init(params: Params) -> AdamState:
@@ -66,3 +71,24 @@ def adam_update(
     out = _map(upd, grads, state.mu, state.nu, params)
     pick = lambda i: _map(lambda o: o[i], out)  # noqa: E731
     return pick(0), AdamState(step=step, mu=pick(1), nu=pick(2))
+
+
+def adam_step(
+    loss_of: Callable[[Params], torch.Tensor],
+    params: Params,
+    state: AdamState,
+    *,
+    lr: float,
+) -> tuple[torch.Tensor, Params, AdamState]:
+    """One training step: `loss_of` on fresh leaf copies of `params`, their
+    gradients by one autograd pass, and one `adam_update`. Returns (the
+    loss before the update, detached; new params; new state)."""
+    live = {"layers": [
+        {name: t.detach().requires_grad_() for name, t in layer.items()}
+        for layer in params["layers"]]}
+    loss = loss_of(live)
+    it = iter(torch.autograd.grad(loss, leaves(live)))
+    grads = {"layers": [{name: next(it) for name in layer}
+                        for layer in live["layers"]]}
+    new_params, new_state = adam_update(grads, state, params, lr=lr)
+    return loss.detach(), new_params, new_state

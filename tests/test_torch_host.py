@@ -206,3 +206,60 @@ def test_fullbatch_accounting_identical(graphs, model, method):
     assert jt.comm_bytes_per_epoch() == tt.comm_bytes_per_epoch()
     assert_same(jt.memory_bytes_per_partition(),
                 tt.memory_bytes_per_partition(), "memory")
+
+
+@pytest.mark.parametrize("policy", ["none", "degree", "halo"])
+def test_feature_store_build_identical(graphs, policy):
+    """`FeatureStore.build` (graph-first, `from_policy` underneath) gives
+    the reference's store: caches, rows and accounting, with rows and
+    accounting-only."""
+    jg, tg = graphs
+    owner = j_vp.partition_vertices(jg, 4, "metis", seed=0)
+    jvb = j_book.build_vertex_book(jg, owner, 4)
+    tvb = t_book.build_vertex_book(tg, owner, 4)
+    feats = np.random.default_rng(4).normal(
+        size=(jg.num_vertices, 5)).astype(np.float32)
+    js = j_fs.FeatureStore.build(jg, jvb, policy=policy, budget=30,
+                                 features=feats, seed=1)
+    ts = t_fs.FeatureStore.build(tg, tvb, policy=policy, budget=30,
+                                 features=feats, seed=1)
+    for name in ("policy", "budget", "row_dim", "bytes_per_row", "cache_ids",
+                 "cache_sizes", "cache_rows", "rows"):
+        assert_same(getattr(js, name), getattr(ts, name), name)
+    assert ts.features is ts.rows and ts.feature_dim == js.feature_dim == 5
+    ids = np.random.default_rng(2).integers(0, jg.num_vertices, 80)
+    for w in range(4):
+        (jr, jst), (tr, tst) = js.gather(w, ids), ts.gather(w, ids)
+        assert_same(jr, tr, "rows")
+        assert tuple(jst) == tuple(tst)
+    ja = j_fs.FeatureStore.build(jg, jvb, policy=policy, budget=30,
+                                 feature_dim=7)
+    ta = t_fs.FeatureStore.build(tg, tvb, policy=policy, budget=30,
+                                 feature_dim=7)
+    assert tuple(ja.stats(1, ids)) == tuple(ta.stats(1, ids))
+    assert ta.features is None
+
+
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
+@pytest.mark.parametrize("cached", [False, True])
+def test_minibatch_step_identical(model, cached):
+    """`minibatch_step` and `overlapped_step_time` give the reference's
+    estimate bit for bit, with and without a feature cache."""
+    kw = dict(model=model, feature_dim=64, hidden_dim=32, num_classes=8,
+              num_layers=3)
+    rng = np.random.default_rng(9)
+    inputs = rng.integers(100, 5000, 4)
+    remote = inputs // 3
+    edges = inputs * 7
+    owned = rng.integers(1000, 2000, 4)
+    extra = (dict(remote_miss_vertices=remote // 2,
+                  cached_vertices=np.full(4, 60)) if cached else {})
+    je = j_cost.minibatch_step(inputs, remote, edges, owned, JSpec(**kw),
+                               **extra)
+    te = t_cost.minibatch_step(inputs, remote, edges, owned, TSpec(**kw),
+                               **extra)
+    assert_same(je, te, model)
+    assert j_cost.overlapped_step_time(je) == t_cost.overlapped_step_time(te)
+    with pytest.raises(NotImplementedError):
+        t_cost.minibatch_step(inputs, remote, edges, owned, TSpec(**kw),
+                              codec="int8")

@@ -19,7 +19,8 @@ the port's backends to the reference's tiled trainer):
       final parameters at rtol=atol=2e-4
   (g) the `gnn_train` CLI trains on the CPU with falling losses, and
       raises at once without `--device cpu` when no GPU is visible
-  (h) `--regime minibatch` and the reference's unported flags are refused
+  (h) the reference's unported flags are refused (`--regime minibatch` is
+      tests/test_torch_minibatch.py's)
 """
 
 import os
@@ -412,19 +413,16 @@ def test_cli_module_entry_point_runs():
 
 def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
     defaults = gnn_train.parser().parse_args([])
-    assert defaults.device == "cuda" and defaults.lr == 1e-2
+    # --lr unset: each regime's reference trainer default
+    assert defaults.device == "cuda" and defaults.lr is None
+    assert gnn_train.DEFAULT_LR == {"fullbatch": 1e-2, "minibatch": 1e-3}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gnn_train.run(TINY)
 
 
-def test_cli_minibatch_regime_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        gnn_train.run(TINY + ["--device", "cpu", "--regime", "minibatch"])
-
-
 @pytest.mark.parametrize("argv", [["--codec", "int8"], ["--ckpt-dir", "x"],
-                                  ["--trace", "x"], ["--overlap"],
+                                  ["--trace", "x"], ["--out-json", "x"],
                                   ["--sync-mode", "ring"]])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(SystemExit):
