@@ -35,11 +35,15 @@ ends the script with a traceback and a non-zero exit:
                times are measured on the card. Then phase 8's first batch
                is drawn on the host (a CPU trainer at its configuration),
                and each layer's tiled layout is kept for phase 5 at every
-               (combiner, rows, F) a GAT or SAGE mini-batch step launches.
+               (combiner, rows, F) a GAT or SAGE mini-batch step launches;
+               and phase 7's ring book is built on the host, its first
+               stage's layout kept at every (combiner, rows, F) a GAT or
+               SAGE tiled ring step launches (rows 25,600 = 4 x 6,400).
   5. shapes  — every (combiner, rows, F) the kernel ran at in phase 4, or
-               that phase 8 will launch, again on the `local_dst` that
-               phase 4 passed it (kept from its first launch) or that
-               phase 8's first batch holds, with random messages: the
+               that phase 7's ring or phase 8 will launch, again on the
+               `local_dst` that phase 4 passed it (kept from its first
+               launch), that the ring's first stage or phase 8's first
+               batch holds, with random messages: the
                checks of
                phase 3 (at rows=69632, F=512 the sum's fold covers the
                first columns that fit FOLD_MAX_TERMS terms), and kernel /
@@ -67,25 +71,31 @@ ends the script with a traceback and a non-zero exit:
                the kernels its default dispatch ran; decode prints its
                launch plan and is also timed at other n_split
                (DECODE_SPLITS).
-  7. train   — full-batch training at phase 4's widths (OR 1.0, hep100,
-               k=4, 512, 3 layers, 16 classes), 5 steps, on expandable
-               allocator segments (`gnn_train.TRAIN_ALLOC_CONF`; training
-               comes last so that phases 1-6 run on the default fixed
-               segments):
-               GAT tiled through the `gnn_train` entry point, then GAT
-               scatter, SAGE tiled and SAGE scatter through the trainer API
-               on the same book, the launch counters set to 0 before and
-               read after each run.
+  7. train   — full-batch training at phase 4's widths (OR 1.0, k=4, 512,
+               3 layers, 16 classes), 5 steps, on expandable allocator
+               segments (`gnn_train.TRAIN_ALLOC_CONF`; training comes
+               after phases 1-6, which run on the default fixed segments),
+               the launch counters set to 0 before and read after each run:
+               halo sync on hep100: GAT tiled through the `gnn_train` entry
+               point, then GAT scatter, SAGE tiled and SAGE scatter through
+               the trainer API on the same book; dense sync: GAT and SAGE
+               tiled on that book; ring sync (blockrow): GAT tiled through
+               `gnn_train --sync-mode ring`, then GAT scatter and SAGE both
+               ways on the ring book.
                Every tiled run launched the kernel for every aggregate
-               (`expected_launches`), scatter runs never; tiled == scatter
-               within LOSS_TOL at every step (the check shown rejecting a
-               trajectory shifted by one step); per-step losses, warm step
+               (`expected_launches`; ring: once a ring stage, k an
+               aggregate, at rows 25,600), scatter runs never; within
+               LOSS_TOL at every step: tiled == scatter (halo, ring; the
+               check shown rejecting a trajectory shifted by one step),
+               dense == halo and ring == halo; per-step losses, warm step
                seconds (median of steps 2-5), peak device memory and
-               launches per step; whether a 3-step rerun repeats the losses
-               bit for bit (reported, not asserted); a small run on the card
-               against the same run on the CPU; the max aggregate's backward
-               on the card (kernel max and tie count) bit for bit against
-               its plain version on an input with ties.
+               launches per step; every tiled path (halo, dense, ring)
+               repeats its 3-step losses and final parameters bit for bit
+               (asserted; scatter paths: reported); small runs (halo,
+               dense, ring) on the card against the same runs on the CPU;
+               the max aggregate's backward on the card (kernel max and tie
+               count) bit for bit against its plain version on an input
+               with ties.
   8. minibatch — mini-batch (DistDGL) training at phase 7's widths on OR
                1.0, metis vertex partitions, k=4, fanouts (15, 10, 5),
                global batch 1024 (`MB_WIDTH`), on the same allocator: GAT
@@ -118,8 +128,9 @@ training results (phase 8's under "minibatch") to
 chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
-over a GAT tiled full-batch training step at the training phase's widths
-and one over a serial GAT tiled mini-batch step at phase 8's.
+each over a GAT tiled full-batch training step at the training phase's
+widths under halo and under ring sync, and one over a serial GAT tiled
+mini-batch step at phase 8's.
 `python3 chip_smoke.py --aggregate-host` runs only the device and build
 phases and `phase_aggregate_host`: the host time a call and a served batch
 of `ops.aggregate`'s autograd Function under inference_mode.
@@ -650,14 +661,16 @@ def _layer_launches(spec) -> list:
     return out
 
 
-def expected_launches(spec, steps: int) -> dict:
+def expected_launches(spec, steps: int, stages: int = 1) -> dict:
     """The segment-reduce launches of `steps` tiled full-batch steps, by
-    (combiner, F) (`_layer_launches`, once a layer: the k partitions are
-    one stacked launch)."""
+    (combiner, F) (`_layer_launches`): once an aggregate under halo and
+    dense (the k partitions are one stacked launch), once a ring stage
+    under ring (`stages` = k; the kernel reduces messages, so F is the
+    message width there too)."""
     out = {}
     for layer in _layer_launches(spec):
         for c, f in layer:
-            out[(c, f)] = out.get((c, f), 0) + steps
+            out[(c, f)] = out.get((c, f), 0) + steps * stages
     return out
 
 
@@ -739,21 +752,82 @@ def max_backward_check(torch, spmm, ops, tiling) -> dict:
     return {"edges": e, "rows": v, "F": f, "tied": tied, "bitwise": True}
 
 
+def _param_tensors(tr) -> list:
+    return [t.detach().clone() for layer in tr.params["layers"]
+            for t in layer.values()]
+
+
+def repeat_check(torch, spmm, make, losses, what) -> dict:
+    """Two fresh REPEAT_STEPS-step runs of trainer factory `make`: their
+    losses against each other and against the first steps of `losses`, and
+    their final parameters against each other, each bit for bit."""
+    runs = []
+    for _ in range(2):
+        tr = make()
+        runs.append((train_steps(torch, spmm, tr, REPEAT_STEPS)[0],
+                     _param_tensors(tr)))
+        del tr
+    (la, pa), (lb, pb) = runs
+    same_losses = la == lb == losses[:REPEAT_STEPS]
+    same_params = all(torch.equal(x, y) for x, y in zip(pa, pb))
+    say(f"[train] {what}: two {REPEAT_STEPS}-step reruns "
+        f"{'repeat' if same_losses else 'differ from'} the run's losses "
+        f"bit for bit ({la}, {lb}), final parameters "
+        f"{'bitwise equal' if same_params else 'differ'}")
+    return {"rerun_losses_bitwise_equal": same_losses,
+            "rerun_params_bitwise_equal": same_params}
+
+
+def ring_shapes(torch, gnn_train, fullbatch, tiling, seen) -> None:
+    """The ring book of phase 7 built before phase 5, on the host: its
+    first stage's folded layout (the k chunks (p, 0), k * R rows) joins
+    `seen` at every (combiner, rows, F) a GAT or SAGE tiled ring step
+    launches the kernel at, so phase 5 times those shapes on the layout
+    phase 7 runs; the layout's padding is printed a stage."""
+    args = gnn_train.parser().parse_args(
+        TRAIN_WIDTH + ["--model", "gat", "--agg-backend", "tiled",
+                       "--sync-mode", "ring"])
+    g, _, _, _, spec = gnn_train.problem(args)
+    book = fullbatch.build_book(g, None, args.k, sync_mode="ring",
+                                tiled_layout=True)
+    rows = args.k * tiling.tiled_shape(book.v_block + 1, 256)[0]
+    ldst = torch.as_tensor(book.chunk_agg_ldst[:, 0].reshape(-1),
+                           device="cuda")
+    for model in ("gat", "sage"):
+        for c, f in expected_launches(
+                dataclasses.replace(spec, model=model), 1):
+            seen[(c, rows, f)] = (ldst, torch.float32,
+                                  {"tile_v": 256, "block_e": 512})
+    chunks = book.chunk_emask.sum(axis=-1)
+    say(f"[train] ring layout ({args.graph} {args.scale}, blockrow, "
+        f"k={args.k}): v_block {book.v_block}, rows {rows} a stage, c_max "
+        f"{book.c_max}, chunk edges {int(chunks.min())}-{int(chunks.max())}; "
+        f"per stage "
+        + "; ".join(_padding(book.chunk_agg_ldst[:, s].reshape(-1))
+                    for s in range(args.k)))
+
+
 def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
                 optim) -> tuple[dict, dict]:
-    """Full-batch training at full width. GAT on the tiled backend through
-    the `gnn_train` entry point, then GAT on scatter and SAGE on both
-    through the trainer API on the same book and blocks, 5 steps each, the
-    launch counters set to 0 before and read after each run. Holds every
-    tiled run's launches to `expected_launches` (every aggregate through
-    the kernel), tiled == scatter at every step, the card == the CPU at a
-    small size, and the max backward on the card == its plain version;
-    reports whether a 3-step rerun repeats the losses bit for bit. Returns
-    the results and the launches of each tiled run."""
+    """Full-batch training at full width, 5 steps a path, the launch
+    counters set to 0 before and read after each run:
+    halo (hep100) GAT tiled through the `gnn_train` entry point, then GAT
+    scatter and SAGE both ways through the trainer API on the same book;
+    dense GAT and SAGE tiled on that book; ring (blockrow) GAT tiled
+    through `gnn_train --sync-mode ring`, then GAT scatter and SAGE both
+    ways on the ring book. Holds every tiled run's launches to
+    `expected_launches` (ring: k a layer's aggregate, at k * R rows),
+    scatter runs to none; within LOSS_TOL at every step: tiled == scatter
+    (halo and ring), dense == halo and ring == halo (tiled and scatter);
+    every tiled path repeats its losses and final parameters bit for bit
+    over 3 steps (scatter paths: reported); the card == the CPU at a small
+    size under halo, dense and ring; and the max backward on the card ==
+    its plain version. Returns the results and the launches of each tiled
+    run."""
     runs, main_launches = {}, {}
 
-    def record(key, spec, losses, seconds, launches, peak, wall):
-        model, backend = key
+    def record(key, tr, losses, seconds, launches, peak, wall):
+        sync, model, backend = key
         warm = float(np.median(seconds[1:]))
         per_step = {f"{c} F={f}": n / len(losses)
                     for (c, f), n in sorted(_by_combiner_width(
@@ -762,59 +836,104 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
             "losses": losses, "step_seconds": seconds,
             "warm_step_seconds": warm, "peak_bytes": peak,
             "launches_per_step": per_step, "wall_seconds": wall}
-        say(f"[train] {model} {backend}: losses {losses}, step seconds "
-            f"{[round(t, 4) for t in seconds]}, warm (median of steps "
-            f"2-{len(seconds)}) {warm:.4f}s, peak device memory "
+        say(f"[train] {sync} {model} {backend}: losses {losses}, step "
+            f"seconds {[round(t, 4) for t in seconds]}, warm (median of "
+            f"steps 2-{len(seconds)}) {warm:.4f}s, peak device memory "
             f"{peak / 2**30:.2f} GiB, segment-reduce launches per step "
             f"{per_step}, wall {wall:.1f}s")
         if backend == "scatter":
-            assert not launches, f"{model} scatter launched {launches}"
+            assert not launches, f"{key} scatter launched {launches}"
             return
-        want = expected_launches(spec, len(losses))
+        k = tr.book.k
+        want = expected_launches(tr.spec, len(losses),
+                                 k if sync == "ring" else 1)
         rows = {r for (_, r, _) in launches}
-        assert _by_combiner_width(launches) == want and len(rows) == 1, (
-            f"{model} tiled: launches {launches}, expected {want}")
-        main_launches[f"train {model}"] = launches
+        assert (_by_combiner_width(launches) == want
+                and rows == {k * tr.blocks.rows_padded}), (
+            f"{key}: launches {launches}, expected {want} at rows "
+            f"{k * tr.blocks.rows_padded}")
+        main_launches[f"train {sync} {model}"] = launches
 
-    expandable_segments(torch, gnn_train)
-    t0 = time.perf_counter()
-    with recording(spmm) as launches:
-        run = gnn_train.run(TRAIN_WIDTH + ["--model", "gat",
-                                           "--agg-backend", "tiled"])
-    base = run.trainer  # its book and blocks serve the runs below
-    sage = dataclasses.replace(base.spec, model="sage")
-    specs = {("gat", "tiled"): base.spec,
-             ("gat", "scatter"): dataclasses.replace(base.spec,
-                                                     agg_backend="scatter"),
-             ("sage", "tiled"): sage,
-             ("sage", "scatter"): dataclasses.replace(sage,
-                                                      agg_backend="scatter")}
-    record(("gat", "tiled"), base.spec, run.losses, run.step_seconds,
-           launches, run.peak_memory, time.perf_counter() - t0)
-    logits = base.forward_logits_global()
-    assert logits.shape == (run.graph.num_vertices, 16)
-    assert np.isfinite(logits).all()
-    del run, logits
-
-    def fresh(spec):
+    def fresh(base, spec, sync_mode):
         params = models.init_params(spec, seed=0, device=base.blocks.x.device)
         return fullbatch.FullBatchTrainer(
             spec=spec, book=base.book, blocks=base.blocks,
-            sync_mode=base.sync_mode, params=params,
+            sync_mode=sync_mode, params=params,
             opt_state=optim.adam_init(params), lr=base.lr)
 
-    for key in [("gat", "scatter"), ("sage", "tiled"), ("sage", "scatter")]:
-        t0 = time.perf_counter()
-        out = train_steps(torch, spmm, fresh(specs[key]), TRAIN_STEPS)
-        record(key, specs[key], *out, time.perf_counter() - t0)
+    def specs_of(base):
+        sage = dataclasses.replace(base.spec, model="sage")
+        return {("gat", "tiled"): base.spec,
+                ("gat", "scatter"): dataclasses.replace(
+                    base.spec, agg_backend="scatter"),
+                ("sage", "tiled"): sage,
+                ("sage", "scatter"): dataclasses.replace(
+                    sage, agg_backend="scatter")}
 
+    def cli_run(sync):
+        t0 = time.perf_counter()
+        with recording(spmm) as launches:
+            run = gnn_train.run(TRAIN_WIDTH + ["--model", "gat",
+                                               "--agg-backend", "tiled",
+                                               "--sync-mode", sync])
+        base = run.trainer  # its book and blocks serve the runs below
+        record((sync, "gat", "tiled"), base, run.losses, run.step_seconds,
+               launches, run.peak_memory, time.perf_counter() - t0)
+        logits = base.forward_logits_global()
+        assert logits.shape == (run.graph.num_vertices, 16)
+        assert np.isfinite(logits).all()
+        return base
+
+    def api_runs(base, sync, keys):
+        specs = specs_of(base)
+        for key in keys:
+            t0 = time.perf_counter()
+            tr = fresh(base, specs[key], sync)
+            out = train_steps(torch, spmm, tr, TRAIN_STEPS)
+            record((sync,) + key, tr, *out, time.perf_counter() - t0)
+            del tr
+
+    def repeats(base, sync, keys):
+        specs = specs_of(base)
+        for key in keys:
+            res = runs[(sync,) + key]
+            if key[1] == "tiled":
+                res.update(repeat_check(
+                    torch, spmm, lambda: fresh(base, specs[key], sync),
+                    res["losses"], f"{sync} {key[0]} {key[1]}"))
+                assert res["rerun_losses_bitwise_equal"] and \
+                    res["rerun_params_bitwise_equal"], (
+                        f"{sync} {key}: a tiled full-batch path does not "
+                        "repeat bit for bit")
+            else:  # reported: the scatter backend's index_add_ is atomic
+                again = train_steps(torch, spmm,
+                                    fresh(base, specs[key], sync),
+                                    REPEAT_STEPS)[0]
+                same = again == res["losses"][:REPEAT_STEPS]
+                res["rerun_losses_bitwise_equal"] = same
+                say(f"[train] {sync} {key[0]} {key[1]}: a {REPEAT_STEPS}-"
+                    f"step rerun {'repeats' if same else 'differs'} "
+                    f"(reported): {again}")
+
+    def hold(a, b, what):
+        diff = hold_losses(runs[a]["losses"], runs[b]["losses"], what)
+        runs[a][f"max_abs_dloss_vs_{' '.join(b)}"] = diff
+        say(f"[train] {what}: max |dloss| {diff:.3g} over "
+            f"{len(runs[a]['losses'])} steps (limit {LOSS_TOL})")
+
+    rest = [("gat", "scatter"), ("sage", "tiled"), ("sage", "scatter")]
+    tiled = [("gat", "tiled"), ("sage", "tiled")]
+    expandable_segments(torch, gnn_train)
+    base = cli_run("halo")
+    api_runs(base, "halo", rest)
+    api_runs(base, "dense", tiled)
     for model in ("gat", "sage"):
-        a, b = runs[model, "tiled"]["losses"], runs[model, "scatter"]["losses"]
-        diff = hold_losses(a, b, f"{model} tiled vs scatter")
-        runs[model, "tiled"]["max_abs_dloss_vs_scatter"] = diff
-        say(f"[train] {model} tiled vs scatter: max |dloss| {diff:.3g} over "
-            f"{len(a)} steps (limit {LOSS_TOL})")
-    a, b = runs["gat", "tiled"]["losses"], runs["gat", "scatter"]["losses"]
+        hold(("halo", model, "tiled"), ("halo", model, "scatter"),
+             f"halo {model} tiled vs scatter")
+        hold(("dense", model, "tiled"), ("halo", model, "tiled"),
+             f"dense {model} vs halo")
+    a = runs["halo", "gat", "tiled"]["losses"]
+    b = runs["halo", "gat", "scatter"]["losses"]
     try:
         hold_losses(a[1:], b[:-1], "shifted by one step")
     except AssertionError:
@@ -822,26 +941,35 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
             "step against scatter's")
     else:
         raise AssertionError("the loss check passes a shifted trajectory")
-
-    # determinism, reported: a 3-step rerun against the run's first steps
-    for key, spec in specs.items():
-        again = train_steps(torch, spmm, fresh(spec), REPEAT_STEPS)[0]
-        same = again == runs[key]["losses"][:REPEAT_STEPS]
-        runs[key]["rerun_bitwise_equal"] = same
-        say(f"[train] {key[0]} {key[1]}: two {REPEAT_STEPS}-step runs "
-            f"{'bitwise equal' if same else 'differ'}: {again}")
+    repeats(base, "halo", tiled + rest[::2])
+    repeats(base, "dense", tiled)
     del base
+    torch.cuda.empty_cache()
+
+    ring = cli_run("ring")
+    api_runs(ring, "ring", rest)
+    for model in ("gat", "sage"):
+        hold(("ring", model, "tiled"), ("ring", model, "scatter"),
+             f"ring {model} tiled vs scatter")
+        for backend in ("tiled", "scatter"):
+            hold(("ring", model, backend), ("halo", model, backend),
+                 f"ring {model} {backend} vs halo")
+    repeats(ring, "ring", tiled + rest[::2])
+    del ring
+    torch.cuda.empty_cache()
 
     small = ["--graph", "OR", "--scale", "0.02", "--k", "4", "--model", "gat",
              "--agg-backend", "tiled", "--features", "32", "--hidden", "32",
              "--layers", "3", "--epochs", "5"]
-    card = gnn_train.run(small + ["--device", "cuda"]).losses
-    cpu = gnn_train.run(small + ["--device", "cpu"]).losses
-    diff = hold_losses(card, cpu, "small gat, card vs cpu")
-    say(f"[train] small gat (OR 0.02, width 32), card vs cpu: max |dloss| "
-        f"{diff:.3g}")
-    results = {f"{m} {b}": r for (m, b), r in runs.items()}
-    results["small_card_vs_cpu_max_abs_dloss"] = diff
+    results = {" ".join(key): r for key, r in runs.items()}
+    for sync in ("halo", "dense", "ring"):
+        argv = small + ["--sync-mode", sync]
+        card = gnn_train.run(argv + ["--device", "cuda"]).losses
+        cpu = gnn_train.run(argv + ["--device", "cpu"]).losses
+        diff = hold_losses(card, cpu, f"small gat {sync}, card vs cpu")
+        say(f"[train] small gat {sync} (OR 0.02, width 32), card vs cpu: "
+            f"max |dloss| {diff:.3g}")
+        results[f"small_{sync}_card_vs_cpu_max_abs_dloss"] = diff
     results["max_backward"] = max_backward_check(torch, spmm, ops, tiling)
     return results, main_launches
 
@@ -1579,8 +1707,8 @@ def _profiled(torch, fn, what: str) -> None:
 def phase_profile(torch, gnn_serve, gnn_train) -> None:
     """`--profile`: the GAT main path's layer-wise pass, run again warm,
     then once under torch.profiler; then a GAT tiled full-batch training
-    step at the training phase's widths, after two warm steps, once under
-    the profiler; then a serial GAT tiled mini-batch step at phase 8's
+    step at the training phase's widths, halo and then ring, each after two
+    warm steps, once under the profiler; then a serial GAT tiled mini-batch step at phase 8's
     configuration, likewise. Prints warm seconds, device time by op, and
     each profiled run's device idle share."""
     with torch.inference_mode():
@@ -1592,11 +1720,13 @@ def phase_profile(torch, gnn_serve, gnn_train) -> None:
         _profiled(torch, eng.run, "layer-wise pass")
     del out, eng
     expandable_segments(torch, gnn_train)
-    run = gnn_train.run(TRAIN_WIDTH + ["--epochs", "2", "--model", "gat",
-                                       "--agg-backend", "tiled"])
-    _profiled(torch, run.trainer.train_step, "training step")
-    del run
-    torch.cuda.empty_cache()
+    for sync in ("halo", "ring"):
+        run = gnn_train.run(TRAIN_WIDTH + ["--epochs", "2", "--model", "gat",
+                                           "--agg-backend", "tiled",
+                                           "--sync-mode", sync])
+        _profiled(torch, run.trainer.train_step, f"{sync} training step")
+        del run
+        torch.cuda.empty_cache()
     mb = gnn_train.run(MB_WIDTH + ["--epochs", "0", "--model", "gat",
                                    "--agg-backend", "tiled"]).trainer
     try:
@@ -1753,7 +1883,9 @@ def main() -> int:
     say(f"[time] serve {time.perf_counter() - t_start:.1f}s")
     minibatch_shapes(torch, gnn_train, minibatch, partition_vertices, tiling,
                      seen)
-    say(f"[time] mini-batch shapes {time.perf_counter() - t_start:.1f}s")
+    ring_shapes(torch, gnn_train, fullbatch, tiling, seen)
+    say(f"[time] mini-batch and ring shapes "
+        f"{time.perf_counter() - t_start:.1f}s")
     shapes = phase_shapes(torch, spmm, seen)
     say(f"[time] shapes {time.perf_counter() - t_start:.1f}s")
     seen.clear()

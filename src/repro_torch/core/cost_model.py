@@ -1,8 +1,8 @@
 # Copy of the serving, full-batch and mini-batch parts of
-# repro/core/cost_model.py (NumPy only): fp32 wire only, edge partition books
-# only for full batch. tests/test_torch_host.py holds `serve_request`,
-# `fullbatch_epoch`, `minibatch_step` and `overlapped_step_time` equal to the
-# originals.
+# repro/core/cost_model.py (NumPy only), fp32 wire only.
+# tests/test_torch_host.py and tests/test_torch_sync.py hold `serve_request`,
+# `fullbatch_epoch` (edge and block-row books), `ring_bytes_per_round`,
+# `minibatch_step` and `overlapped_step_time` equal to the originals.
 """Cluster cost model — prices one serving micro-batch, one full-batch
 training epoch and one mini-batch training step on the paper's 32-machine
 cluster (§3: 8-core Haswell 2.4 GHz, 64 GB RAM).
@@ -23,14 +23,15 @@ from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
-from repro_torch.core.partition_book import EdgePartitionBook
+from repro_torch.core.partition_book import BlockRowBook
 
 if TYPE_CHECKING:
     from repro_torch.gnn.models import GNNSpec
 
 __all__ = ["ClusterSpec", "FullBatchEstimate", "MiniBatchEstimate",
            "PAPER_CLUSTER", "ServeEstimate", "fullbatch_epoch",
-           "minibatch_step", "overlapped_step_time", "serve_request"]
+           "minibatch_step", "overlapped_step_time", "ring_bytes_per_round",
+           "serve_request"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,29 +103,105 @@ class FullBatchEstimate:
     wire_bytes: Optional[np.ndarray] = None
 
 
+def ring_bytes_per_round(book: BlockRowBook, d: int) -> int:
+    """Cluster-wide `ppermute` bytes of ONE ring aggregate at width d.
+
+    k−1 stages, each device shipping its [Vb+1, d] f32 payload block:
+    k·(k−1)·(Vb+1)·d·4 bytes. Independent of graph structure — the 1.5D
+    regime trades the replication-factor sensitivity of halo for a fixed
+    (k−1)/k · V·d volume (< dense's 2·V·d at every k). Matches
+    `gnn.sync.sync_bytes_per_round(book, d, "ring")`.
+    """
+    return book.k * (book.k - 1) * (book.v_block + 1) * d * 4
+
+
+def _ring_epoch(
+    book: BlockRowBook,
+    spec: "GNNSpec",
+    cluster: ClusterSpec,
+) -> FullBatchEstimate:
+    """Overlap-aware 1.5D ring epoch estimate (fp32 wire: 4 bytes an
+    element).
+
+    Each aggregate is k stages of per-chunk segment-SpMM with the next
+    block's `ppermute` in flight: a stage's transfer is hidden when the
+    chunk compute covers it, so per aggregate
+        time = k·c_stage + (k−1)·max(0, t_stage − c_stage)
+    and only the uncovered remainder shows up as comm_time.
+    """
+    k = book.k
+    edges = book.chunk_emask.sum(axis=(1, 2)).astype(np.float64)
+    verts = book.vmask.sum(axis=1).astype(np.float64)
+
+    # chunk_emask already counts BOTH directions of every stored edge, while
+    # _agg_bytes_per_edge prices a stored (bidirectional) edge — halve.
+    agg_bytes = edges / 2.0 * _agg_bytes_per_edge(spec) * 3.0
+    nn_flops = verts * _model_flops_per_vertex(spec) * 3.0
+    compute = agg_bytes / cluster.mem_bw + nn_flops / cluster.flops
+
+    dims = [dout for _, dout in spec.dims()]
+    aggs_per_layer = 3 if spec.model == "gat" else 1
+    syncs = aggs_per_layer * 2  # per layer, fwd+bwd
+    stage_rows = float(book.v_block + 1)
+    comm_bytes = np.full(k, (k - 1) * stage_rows * 4 * sum(dims) * syncs)
+    wire_bytes = np.zeros(k)
+    for d in dims:
+        wire_bytes += (k - 1) * stage_rows * 4.0 * d * syncs
+    comm = np.zeros(k)
+    if k > 1:
+        for d in dims:
+            t_stage = (stage_rows * d * 4.0 / cluster.net_bw
+                       + cluster.net_latency)
+            # per-stage chunk compute: this layer's aggregation share of the
+            # memory-bound traffic, spread over the k chunks
+            layer_frac = 3 * 4 * d / _agg_bytes_per_edge(spec)
+            c_stage = agg_bytes * layer_frac / cluster.mem_bw / k
+            exposed = np.maximum(0.0, t_stage - c_stage) * (k - 1)
+            comm += exposed * syncs
+    f, h, L = spec.feature_dim, spec.hidden_dim, spec.num_layers
+    memory = (
+        verts * f * 4
+        + verts * h * 4 * L * 2
+        + edges * 4
+        + 2 * stage_rows * max(f, h) * 4  # double-buffered rotation payload
+    )
+    epoch = float((compute + comm).max())
+    return FullBatchEstimate(
+        epoch_time=epoch,
+        compute_time=compute,
+        comm_time=comm,
+        comm_bytes=comm_bytes,
+        memory=memory,
+        oom=bool((memory > cluster.memory).any()),
+        wire_bytes=wire_bytes,
+    )
+
+
 def fullbatch_epoch(
-    book: EdgePartitionBook,
+    book,
     spec: "GNNSpec",
     cluster: ClusterSpec = PAPER_CLUSTER,
     codec=None,
 ) -> FullBatchEstimate:
-    """Full-batch epoch estimate from a real edge partition book
-    (DistGNN/halo regime).
+    """Full-batch epoch estimate from a real partition book, fp32 wire
+    only: 4 bytes an element.
 
+    EdgePartitionBook (DistGNN/halo regime) —
     Compute: aggregation is memory-bound over local edges; vertex updates are
     dense flops over local (replicated!) vertices — so *vertex imbalance*
     directly skews compute, exactly the paper's §4.2(2) observation.
     Communication: true per-partition replica-sync volume (alltoallv on the
     paper's cluster — no bucket padding), reduce + broadcast per layer,
-    forward + backward. fp32 wire only: 4 bytes an element.
+    forward + backward.
+
+    BlockRowBook (1.5D ring regime) — see `_ring_epoch`: fixed rotation
+    volume with the transfer overlapped against per-chunk compute.
     """
-    if not isinstance(book, EdgePartitionBook):
-        raise NotImplementedError(
-            f"fullbatch_epoch on a {type(book).__name__} (the 1.5D ring "
-            "regime) is not yet ported")
     if codec not in (None, "fp32"):
         raise NotImplementedError(f"wire codec {codec!r} is not yet ported; "
                                   "this port has fp32 only")
+    if isinstance(book, BlockRowBook):
+        return _ring_epoch(book, spec, cluster)
     k = book.k
     edges = book.emask.sum(axis=1).astype(np.float64)
     verts = book.vmask.sum(axis=1).astype(np.float64)

@@ -1,5 +1,4 @@
-# Copy of repro/core/partition_book.py (NumPy only), imports redirected to repro_torch,
-# without BlockRowBook (it comes with the Ring sync);
+# Copy of repro/core/partition_book.py (NumPy only), imports redirected to repro_torch;
 # tests/test_torch_host.py holds its results equal to the original.
 """Partition books: static device-side layouts + halo routing tables.
 
@@ -24,6 +23,18 @@ VertexPartitionBook (edge-cut / DistDGL regime)
   * mini-batch sampling computes, per step, which remote vertices each
     worker must fetch — the paper's "remote vertices" metric.
 
+BlockRowBook (1.5D block partitioning / CAGNET regime)
+  * process row p owns the contiguous vertex block [p*Vb, (p+1)*Vb) — no
+    partitioning heuristic, no replicas, every vertex has exactly one home
+  * the symmetrised directed edge list is tiled into k x k block-column
+    chunks: chunk (p, s) holds the directed edges with dst in block p and
+    src in block (p+s) mod k, stored PRE-ROTATED in ring-stage order so
+    `RingSync` stage s reads chunk s with a static index
+  * replica synchronisation disappears: a `lax.ppermute` ring rotates the
+    feature blocks instead (k-1 stages of (Vb+1)*d elements per device),
+    each stage's local segment-SpMM over one chunk overlapping the next
+    block's transfer (gnn/sync.py:RingSync).
+
 TPU adaptation (DESIGN.md §2): DistGNN's MPI alltoallv becomes a fixed-bucket
 `lax.all_to_all` because XLA SPMD requires static shapes; the partition is
 known before tracing so the routing is static. Padding waste = (B * k / true
@@ -44,8 +55,10 @@ from repro_torch.kernels.tiling import (
 )
 
 __all__ = [
+    "BlockRowBook",
     "EdgePartitionBook",
     "VertexPartitionBook",
+    "build_blockrow_book",
     "build_edge_book",
     "build_vertex_book",
 ]
@@ -313,6 +326,160 @@ class VertexPartitionBook:
         out[:] = features[safe]
         out[self.vglobal < 0] = 0
         return out
+
+
+# ---------------------------------------------------------------------------
+# Block-row book (1.5D / CAGNET regime)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockRowBook:
+    """Static 1.5D layout: contiguous vertex blocks + ring-ordered edge chunks.
+
+    Row layout mirrors `EdgePartitionBook`'s device block (dummy row at index
+    `v_block`), so the same model code runs on both; the halo routing tables
+    are replaced by the chunk arrays `RingSync` consumes.
+    """
+
+    k: int
+    num_vertices: int
+    v_block: int   # rows per block, ceil(V / k); local row v_block = dummy
+    c_max: int     # uniform per-chunk edge capacity (max over k*k chunks)
+
+    # [k, v_block+1]: global id per local slot (pad/dummy -> -1)
+    vglobal: np.ndarray
+    vmask: np.ndarray    # [k, v_block+1] bool
+    degree: np.ndarray   # [k, v_block+1] float32 global symmetric degree
+
+    # ring chunks over the SYMMETRISED directed edge list (each stored edge
+    # (u, v) contributes u->v and v->u; 2E directed edges total), pre-rotated:
+    # chunk (p, s) holds the directed edges with dst in block p and src in
+    # block (p+s) mod k. chunk_esrc indexes the VISITING payload block's rows,
+    # chunk_edst the local (own) rows; pad -> v_block (dummy row).
+    chunk_esrc: np.ndarray   # [k, k, c_max] int32
+    chunk_edst: np.ndarray   # [k, k, c_max] int32
+    chunk_emask: np.ndarray  # [k, k, c_max] bool
+
+    # per-chunk tiled aggregation layouts (kernels.tiling.prepare_tiled_edges
+    # over chunk_edst with valid=chunk_emask, one shared per_tile so all k*k
+    # chunks stack to one static shape). Empty [k, k, 0] unless the book was
+    # built with tiled_layout=True.
+    chunk_agg_order: np.ndarray  # [k, k, E_tiled] int32 (pad -> c_max)
+    chunk_agg_ldst: np.ndarray   # [k, k, E_tiled] int32 (pad -> tile_v)
+
+    # masters == vmask: every vertex lives exactly once, on its block row
+    @property
+    def master(self) -> np.ndarray:
+        return self.vmask
+
+    def local_features(self, features: np.ndarray) -> np.ndarray:
+        """Block global features [V, F] into [k, v_block+1, F] device layout."""
+        f = np.zeros((self.k, self.v_block + 1, features.shape[1]),
+                     dtype=features.dtype)
+        safe = np.where(self.vglobal >= 0, self.vglobal, 0)
+        f[:] = features[safe]
+        f[~self.vmask] = 0
+        return f
+
+    def local_labels(self, labels: np.ndarray, fill: int = -1) -> np.ndarray:
+        out = np.full((self.k, self.v_block + 1), fill, dtype=np.int32)
+        safe = np.where(self.vglobal >= 0, self.vglobal, 0)
+        out[:] = labels[safe]
+        out[~self.vmask] = fill
+        return out
+
+    def scatter_to_global(self, local: np.ndarray) -> np.ndarray:
+        """Collect block rows back into a global [V, ...] array (host-side)."""
+        out_shape = (self.num_vertices,) + local.shape[2:]
+        out = np.zeros(out_shape, dtype=local.dtype)
+        out[self.vglobal[self.vmask]] = local[self.vmask]
+        return out
+
+
+def build_blockrow_book(
+    graph: Graph,
+    k: int,
+    *,
+    tiled_layout: bool = False,
+) -> BlockRowBook:
+    """1.5D book: contiguous vertex blocks, symmetrised edges chunked by
+    (dst block, ring stage). `tiled_layout` additionally builds one
+    `prepare_tiled_edges` layout per chunk (shared per_tile, so the stacked
+    [k, k, ...] arrays have one static shape) for the tiled/pallas backends."""
+    V = graph.num_vertices
+    v_block = -(-max(V, 1) // k)  # ceil(V / k)
+
+    vglobal = np.full((k, v_block + 1), -1, dtype=np.int64)
+    ids = np.arange(V, dtype=np.int64)
+    vglobal[ids // v_block, ids % v_block] = ids
+    vmask = vglobal >= 0
+
+    deg_global = graph.degrees().astype(np.float32)
+    degree = np.zeros((k, v_block + 1), dtype=np.float32)
+    degree[ids // v_block, ids % v_block] = deg_global
+
+    # symmetrised directed edge list: u->v and v->u per stored edge
+    ssrc = np.concatenate([graph.src, graph.dst]).astype(np.int64)
+    sdst = np.concatenate([graph.dst, graph.src]).astype(np.int64)
+    own = sdst // v_block            # owning block row (by destination)
+    sblk = ssrc // v_block           # source block (the visiting payload)
+    stage = (sblk - own) % k         # ring stage that sees this edge
+
+    key = own * k + stage
+    order = np.argsort(key, kind="stable")
+    key_sorted = key[order]
+    sizes = np.bincount(key_sorted, minlength=k * k)
+    c_max = int(max(sizes.max() if sizes.size else 0, 1))
+    starts = np.zeros(k * k + 1, dtype=np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    within = np.arange(key_sorted.shape[0]) - starts[key_sorted]
+
+    chunk_esrc = np.full((k, k, c_max), v_block, dtype=np.int32)
+    chunk_edst = np.full((k, k, c_max), v_block, dtype=np.int32)
+    chunk_emask = np.zeros((k, k, c_max), dtype=bool)
+    cp = key_sorted // k
+    cs = key_sorted % k
+    chunk_esrc[cp, cs, within] = (ssrc[order] % v_block).astype(np.int32)
+    chunk_edst[cp, cs, within] = (sdst[order] % v_block).astype(np.int32)
+    chunk_emask[cp, cs, within] = True
+
+    if tiled_layout:
+        n_rows = v_block + 1
+        _, n_tiles = tiled_shape(n_rows)
+        per_tile = max(
+            tiled_need_per_tile(chunk_edst[p, s], n_rows,
+                                valid=chunk_emask[p, s])
+            for p in range(k) for s in range(k)
+        )
+        e_tiled = per_tile * n_tiles
+        chunk_agg_order = np.empty((k, k, e_tiled), dtype=np.int64)
+        chunk_agg_ldst = np.empty((k, k, e_tiled), dtype=np.int32)
+        for p in range(k):
+            for s in range(k):
+                chunk_agg_order[p, s], chunk_agg_ldst[p, s], _ = (
+                    prepare_tiled_edges(
+                        chunk_edst[p, s], n_rows, per_tile=per_tile,
+                        valid=chunk_emask[p, s],
+                    ))
+    else:
+        chunk_agg_order = np.zeros((k, k, 0), dtype=np.int64)
+        chunk_agg_ldst = np.zeros((k, k, 0), dtype=np.int32)
+
+    return BlockRowBook(
+        k=k,
+        num_vertices=V,
+        v_block=v_block,
+        c_max=c_max,
+        vglobal=vglobal,
+        vmask=vmask,
+        degree=degree,
+        chunk_esrc=chunk_esrc,
+        chunk_edst=chunk_edst,
+        chunk_emask=chunk_emask,
+        chunk_agg_order=chunk_agg_order.astype(np.int32),
+        chunk_agg_ldst=chunk_agg_ldst,
+    )
 
 
 def build_vertex_book(graph: Graph, vertex_assignment: np.ndarray, k: int) -> VertexPartitionBook:

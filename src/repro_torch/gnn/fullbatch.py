@@ -1,4 +1,4 @@
-"""Distributed full-batch GNN training (DistGNN-style, vertex-cut halo sync).
+"""Distributed full-batch GNN training (vertex-cut halo/dense + 1.5D ring).
 
 Twin of repro/gnn/fullbatch.py in its sim mode. The reference runs the
 per-device program under `jax.vmap` over the stacked [k, ...] blocks; here
@@ -7,13 +7,13 @@ every tensor already carries the k partitions as its leading dimension
 through them stands in for the vmap backward. The step is composed from
 the reference's stage functions:
 
-  build_book          partition layout     (edge book)
-  build_device_blocks static device state  (stacked `Block` on a device)
+  build_book          partition layout     (edge book | 1.5D block rows)
+  build_device_blocks static device state  (stacked `Block` | `RingBlock`)
   make_step_fns       loss / forward closed over the SyncStrategy
 
 `FullBatchTrainer` composes them and trains with the reference's Adam
-(optim/adam.py). Halo and local sync, fp32 wire; the shard_map mode, dense
-and ring sync and the lossy codecs are not yet ported.
+(optim/adam.py). Local, dense, halo and ring sync, fp32 wire; the
+shard_map mode and the lossy codecs are not yet ported.
 """
 
 from __future__ import annotations
@@ -26,13 +26,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import Graph
-from repro_torch.core.partition_book import EdgePartitionBook, build_edge_book
+from repro_torch.core.partition_book import (
+    BlockRowBook,
+    build_blockrow_book,
+    build_edge_book,
+)
 from repro_torch.gnn import models
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sync import (
     SYNC_MODES,
-    Block,
     build_blocks,
+    build_ring_blocks,
     make_sync,
     sync_bytes_per_round,
 )
@@ -46,29 +50,37 @@ def build_book(
     *,
     sync_mode: str = "halo",
     tiled_layout: bool = False,
-) -> EdgePartitionBook:
-    """The static layout for a sync strategy: halo and local run on an
-    `EdgePartitionBook` (any edge partitioner)."""
+):
+    """The static layout for a sync strategy: halo/dense/local run on an
+    `EdgePartitionBook` (any edge partitioner); ring runs on a
+    `BlockRowBook` (1.5D contiguous blocks: `edge_assignment` is ignored
+    and may be None)."""
     if sync_mode not in SYNC_MODES:
-        raise NotImplementedError(
-            f"sync mode {sync_mode!r} is not yet ported; this port has "
-            f"{', '.join(SYNC_MODES)}")
+        raise ValueError(f"unknown sync mode {sync_mode!r}: valid strategies "
+                         f"are {', '.join(SYNC_MODES)}")
+    if sync_mode == "ring":
+        return build_blockrow_book(graph, k, tiled_layout=tiled_layout)
     if edge_assignment is None:
         raise ValueError(f"sync mode {sync_mode!r} needs an edge assignment")
     return build_edge_book(graph, edge_assignment, k,
                            tiled_layout=tiled_layout)
 
 
-def build_device_blocks(book: EdgePartitionBook, features, labels,
-                        train_mask, *, device) -> Block:
+def build_device_blocks(book, features, labels, train_mask, *, device):
     """Stacked [k, ...] device blocks matching the book's layout."""
+    if isinstance(book, BlockRowBook):
+        return build_ring_blocks(book, features, labels, train_mask,
+                                 device=device)
     return build_blocks(book, features, labels, train_mask, device=device)
 
 
 def resolve_sync_mode(sync_mode: str, k: int) -> str:
     """k=1 collapses the partial-aggregate strategies to the LocalSync
-    oracle."""
-    return "local" if k == 1 else sync_mode
+    oracle. Ring stays ring: its blocks carry chunk tables, not halo
+    tables, and its k=1 loop is one stage."""
+    if k == 1 and sync_mode != "ring":
+        return "local"
+    return sync_mode
 
 
 def make_step_fns(spec: GNNSpec, sync_mode: str, k: int):
@@ -88,9 +100,9 @@ def make_step_fns(spec: GNNSpec, sync_mode: str, k: int):
 @dataclasses.dataclass
 class FullBatchTrainer:
     spec: GNNSpec
-    book: EdgePartitionBook
-    blocks: Block                      # stacked [k, ...]
-    sync_mode: str = "halo"            # halo | local
+    book: Any                          # EdgePartitionBook | BlockRowBook
+    blocks: Any                        # Block | RingBlock, stacked [k, ...]
+    sync_mode: str = "halo"            # local | dense | halo | ring
     params: Any = None
     opt_state: Optional[AdamState] = None
     lr: float = 1e-2
@@ -147,7 +159,8 @@ class FullBatchTrainer:
         """Analytic collective traffic of one full-batch epoch (fwd+bwd).
 
         Backward of a reduce+broadcast pair is another broadcast+reduce
-        pair: 2x the forward volume. GAT syncs 3 aggregates/layer, SAGE/GCN
+        pair; backward of a ppermute ring is the reverse ring: either way
+        2x the forward volume. GAT syncs 3 aggregates/layer, SAGE/GCN
         1; each aggregate is priced at its true payload width
         (`GNNSpec.aggregate_dims`).
         """
@@ -169,8 +182,13 @@ class FullBatchTrainer:
         h = self.spec.hidden_dim
         L = self.spec.num_layers
         verts = self.book.vmask.sum(axis=1)  # true local vertices
-        edges = self.book.emask.sum(axis=1)
-        comm_buf = 2 * k * self.book.bucket * max(f, h) * 4
+        if isinstance(self.book, BlockRowBook):
+            edges = self.book.chunk_emask.sum(axis=(1, 2))
+            # double-buffered rotation payload instead of halo buckets
+            comm_buf = 2 * (self.book.v_block + 1) * max(f, h) * 4
+        else:
+            edges = self.book.emask.sum(axis=1)
+            comm_buf = 2 * k * self.book.bucket * max(f, h) * 4
         feat = verts * f * 4
         # stored activations: one [Vloc, hidden] per layer (backward needs them)
         acts = verts * h * 4 * L

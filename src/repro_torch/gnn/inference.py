@@ -4,7 +4,8 @@ Twin of repro/gnn/inference.py. Every vertex's layer-l embedding is
 computed before any layer-(l+1) embedding, so each layer touches each edge
 once. The k edge partitions run stacked on one device (gnn/sync.py), each
 layer through `models._LAYERS` (every aggregate through
-`kernels.ops.aggregate`), with halo completion between partitions. After
+`kernels.ops.aggregate`), with halo (or dense) completion between
+partitions. After
 each layer the master rows are gathered into a global [V, d_l] matrix on
 the host; `build_embedding_stores` freezes those into `RowStore`s, which
 the online path (`repro_torch.serve`) answers requests from.
@@ -116,7 +117,7 @@ class LayerwiseInference:
         return outs
 
     def sync_bytes(self) -> int:
-        """Analytic halo traffic of one full layer-wise pass (forward only):
+        """Analytic sync traffic of one full layer-wise pass (forward only):
         every aggregate priced at its true payload width
         (`GNNSpec.aggregate_dims`)."""
         return sum(

@@ -4,7 +4,7 @@ Twin of repro/gnn/models.py. The reference runs one partition's layer under
 `vmap`; here every tensor carries the partitions as a leading dimension:
 
   x      [k, Vloc+1, F]  local vertex states (last row = dummy/padding sink)
-  blk    a `gnn.sync.Block` of stacked [k, ...] tensors
+  blk    a `gnn.sync.Block` (or `RingBlock`) of stacked [k, ...] tensors
 
 Every edge aggregation goes through `sync.edge_aggregate(blk, payload,
 msg_fn, ...)`, which returns the complete per-destination reduce over the
@@ -51,14 +51,19 @@ class GNNSpec:
 
     def aggregate_dims(self, mode: str = "halo") -> list[list[int]]:
         """Per layer, the wire width of every `sync.edge_aggregate` the
-        layer issues, in issue order (halo/local complete partial
-        aggregates): sage/gcn [d_in], gat [H, H, H·dh]."""
+        layer issues, in issue order. halo/dense/local complete partial
+        AGGREGATES: sage/gcn [d_in], gat [H, H, H·dh]; ring rotates the
+        PAYLOAD itself: sage/gcn [d_in], gat [H, H+H·dh, H+H·dh] (s_src,
+        then the shared [s_src | z] for den and num)."""
         out = []
         for din, dout in self.dims():
             if self.model == "gat":
                 h = self.gat_heads
                 dh = max(dout // h, 1)
-                out.append([h, h, h * dh])
+                if mode == "ring":
+                    out.append([h, h + h * dh, h + h * dh])
+                else:
+                    out.append([h, h, h * dh])
             else:
                 out.append([din])
         return out

@@ -1,6 +1,6 @@
 """Synchronisation strategies for distributed full-graph GNN layers.
 
-Twin of repro/gnn/sync.py (Local and Halo; Dense and Ring come later). The
+Twin of repro/gnn/sync.py (Local, Dense, Halo and Ring; fp32 wire). The
 reference runs one partition per `vmap` lane; here the k partitions are a
 leading dimension of every tensor, so a collective is a tensor op over that
 dimension:
@@ -13,15 +13,20 @@ dimension:
 `msg_fn(src_rows, dst_rows, edge_mask)` sees the payload rows gathered at
 each edge's source, the edge's destination as a row of the flattened
 [k*n] row space (for destination-side tables such as GAT's softmax shift)
-and the edge mask; n = v_max + 1 (the last row of each partition is the
-dummy/padding sink).
+and the edge mask; n is the rows of a partition's block, the last of them
+the dummy/padding sink.
 
-All k partitions aggregate in ONE `ops.aggregate` call. For the tiled
-backends that works because every partition's layout has the same
-`per_tile`: stacked, the k layouts are one layout over k * rows_padded rows
-(`local_dst` is tile-relative), so one kernel launch serves them all.
+All k partitions aggregate in ONE `ops.aggregate` call (Ring: one a ring
+stage). For the tiled backends that works because every partition's layout
+has the same `per_tile`: stacked, the k layouts are one layout over
+k * rows_padded rows (`local_dst` is tile-relative), so one kernel launch
+serves them all.
 
   LocalSync — k=1: the partial aggregates are already complete.
+  DenseSync — the naive baseline: each partition's partial placed at its
+              global rows of a [k, V+1, d] buffer, summed over the
+              partitions (the reference's `lax.psum` of its [V+1, d]
+              buffer), gathered back at every replica.
   HaloSync  — static-routed replica completion from the partition book's
               replica lists. The reference's `lax.all_to_all(split_axis=0,
               concat_axis=0)` over the stacked [k(sender), k(bucket), B, d]
@@ -29,6 +34,20 @@ backends that works because every partition's layout has the same
               are index_add_ / scatter_reduce_("amax") / index assignment on the
               flattened [k*n] rows. These update the fresh aggregate in
               place.
+  RingSync  — 1.5D block rotation over a `BlockRowBook` (`RingBlock`): at
+              ring stage s partition p holds block (p+s) mod k of the
+              payload (the reference's `lax.ppermute` ring after s hops)
+              and aggregates its pre-rotated chunk (p, s); the k stages
+              run in order, summed (or maxed) in stage order.
+
+No completion's result depends on the order of float atomics: every
+`index_add_` / `scatter_reduce_` a completion issues adds at most one real
+value to a row (pads write the dummy rows with the reduce's identity), and
+sums over partitions or stages are reductions over a stacked dimension or
+adds in a fixed order. The edge gathers' backward is PyTorch's sort-based
+`index_put_` accumulate, which repeats. So a tiled full-batch step repeats
+bit for bit; the scatter backend's own `index_add_` (kernels/ref.py) is
+the oracle and adds in atomic order.
 """
 
 from __future__ import annotations
@@ -39,7 +58,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.partition_book import EdgePartitionBook
+from repro_torch.core.partition_book import BlockRowBook, EdgePartitionBook
 from repro_torch.kernels import ops
 from repro_torch.kernels.tiling import tiled_shape
 
@@ -75,6 +94,7 @@ class Block(NamedTuple):
     agg_order: torch.Tensor    # [k*E_tiled] int64
     agg_ldst: torch.Tensor     # [k*E_tiled] int32
     rows_padded: int           # R = tiled_shape(n)[0]
+    num_vertices: int          # V: vglobal's pad value, Dense's dummy row
 
 
 def build_blocks(
@@ -123,6 +143,7 @@ def build_blocks(
         agg_order=t(order.reshape(-1)),
         agg_ldst=t(book.agg_ldst.reshape(-1), torch.int32),
         rows_padded=rows_padded,
+        num_vertices=book.num_vertices,
     )
 
 
@@ -172,11 +193,62 @@ def _flat_rows(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseSync(_PartialAggSync):
+    """Naive baseline: materialise the global vertex state and sum it over
+    the partitions. Each partition owns one [V+1, d] slice of a stacked
+    buffer, in which it holds a vertex at most once, so the placement adds
+    at most one real value to a row; the sum over the partitions is a
+    reduction over the stacked dimension, not adds into one [V+1, d]
+    buffer whose replicas would land in atomic order."""
+
+    blk: Block
+
+    def _stacked(self, h, fill):
+        """[k*(V+1), d] filled with `fill` and the row indices of each
+        partition's rows in it (pads -> that partition's dummy row V)."""
+        blk = self.blk
+        k, _, d = h.shape
+        g_rows = blk.num_vertices + 1
+        return (h.new_full((k * g_rows, d), fill),
+                _flat_rows(blk.vglobal, g_rows), g_rows)
+
+    def reduce_sum(self, h):
+        blk = self.blk
+        k, n, d = h.shape
+        buf, rows, g_rows = self._stacked(h, 0.0)
+        part = (h * blk.vmask[..., None]).reshape(k * n, d)
+        g = buf.index_add(0, rows, part).reshape(k, g_rows, d).sum(0)
+        return g[blk.vglobal] * blk.vmask[..., None]
+
+    def reduce_max(self, h):
+        blk = self.blk
+        k, n, d = h.shape
+        buf, rows, g_rows = self._stacked(h, -1e30)
+        part = torch.where(blk.vmask[..., None], h, -1e30).reshape(k * n, d)
+        buf.scatter_reduce_(0, rows[:, None].expand(-1, d), part,
+                            reduce="amax", include_self=True)
+        g = buf.reshape(k, g_rows, d).amax(0)
+        return torch.where(blk.vmask[..., None], g[blk.vglobal], h)
+
+    def broadcast(self, h):
+        # reduce already produced globally-complete values at every replica
+        return h
+
+    def psum(self, v):
+        return v.sum(0)
+
+
+@dataclasses.dataclass(frozen=True)
 class HaloSync(_PartialAggSync):
     """Static-routed replica synchronisation (the paper-faithful path).
 
     reduce_*: every mirror packs its partial rows for each master partition
-    into fixed buckets; after the exchange, masters scatter-accumulate.
+    into fixed buckets; after the exchange, masters scatter-accumulate, one
+    sender at a time in sender order. Within one (receiver, sender) pair
+    the real slots are distinct master rows and the pads hit the dummy row
+    with the reduce's identity, so no row takes two real values in one
+    call: the completion does not depend on the order of atomic adds,
+    although a master row receives from several mirrors.
     broadcast: the exact reverse routing pushes completed rows back."""
 
     blk: Block
@@ -190,28 +262,33 @@ class HaloSync(_PartialAggSync):
         k, n, d = h.shape
         return h.reshape(k * n, d)[_flat_rows(idx, n)].reshape(idx.shape + (d,))
 
+    def _per_sender(self, h, recv):
+        """(flat [k*n, d] view of h, [(rows, values)] one pair a sender)."""
+        k, n, d = h.shape
+        rows = _flat_rows(self.blk.recv_idx, n).reshape(k, k, -1)
+        return h.reshape(k * n, d), [
+            (rows[:, i].reshape(-1), recv[:, i].reshape(-1, d))
+            for i in range(k)]
+
     def reduce_sum(self, h):
         blk = self.blk
-        k, n, d = h.shape
         send = self._gather(h, blk.send_idx) * blk.send_mask[..., None]
-        recv = self._exchange(send)
-        # pads point at the dummy row and carry zeros -> harmless adds
-        flat = h.reshape(k * n, d)
-        flat.index_add_(0, _flat_rows(blk.recv_idx, n), recv.reshape(-1, d))
-        return flat.reshape(k, n, d)
+        flat, pairs = self._per_sender(h, self._exchange(send))
+        for rows, vals in pairs:
+            flat.index_add_(0, rows, vals)
+        return flat.reshape(h.shape)
 
     def reduce_max(self, h):
         blk = self.blk
-        k, n, d = h.shape
         send = torch.where(blk.send_mask[..., None],
                            self._gather(h, blk.send_idx), -1e30)
         recv = self._exchange(send)
         recv = torch.where(blk.recv_mask[..., None], recv, -1e30)
-        flat = h.reshape(k * n, d)
-        idx = _flat_rows(blk.recv_idx, n)[:, None].expand(-1, d)
-        flat.scatter_reduce_(0, idx, recv.reshape(-1, d), reduce="amax",
-                             include_self=True)
-        return flat.reshape(k, n, d)
+        flat, pairs = self._per_sender(h, recv)
+        for rows, vals in pairs:
+            flat.scatter_reduce_(0, rows[:, None].expand_as(vals), vals,
+                                 reduce="amax", include_self=True)
+        return flat.reshape(h.shape)
 
     def broadcast(self, h):
         blk = self.blk
@@ -230,27 +307,164 @@ class HaloSync(_PartialAggSync):
         return v.sum(0)
 
 
-SYNC_MODES = ("local", "halo")
+class RingBlock(NamedTuple):
+    """The k block rows' static device state, stacked [k, ...].
+
+    The first fields are the reference's `RingBlock` (same row layout as
+    `Block`: the dummy row is the last, v_block); the chunk tables are
+    flattened once at build time, one row a ring stage s, over the k
+    partitions' chunks (p, s) stacked."""
+
+    x: torch.Tensor            # [k, n, F] float32 features of the OWNED block
+    labels: torch.Tensor       # [k, n] int32 (-1 pad)
+    train_mask: torch.Tensor   # [k, n] bool
+    degree: torch.Tensor       # [k, n] float32 global symmetric degree
+    master: torch.Tensor       # [k, n] bool (== vmask: single-owner layout)
+    vmask: torch.Tensor        # [k, n] bool
+    vglobal: torch.Tensor      # [k, n] int64 (pad -> V)
+    # per stage s: chunk (p, s)'s edges; the source row of the payload block
+    # partition p holds at stage s, (p+s) mod k, and the destination row of
+    # p's own block, both in the flattened [k*n] row space (pad -> the dummy
+    # rows), and the destination in [k*R] for the aggregate
+    ring_src: torch.Tensor     # [k, k*c_max] int64
+    ring_dst: torch.Tensor     # [k, k*c_max] int64
+    ring_mask: torch.Tensor    # [k, k*c_max] bool
+    agg_dst: torch.Tensor      # [k, k*c_max] int64
+    # per stage, the k chunk layouts folded into one over k*R rows (empty
+    # without tiled_layout): gather indices into the stage's k*c_max
+    # messages (pad -> k*c_max) and tile-relative rows (pad -> tile_v)
+    agg_order: torch.Tensor    # [k, k*E_tiled] int64
+    agg_ldst: torch.Tensor     # [k, k*E_tiled] int32
+    rows_padded: int           # R = tiled_shape(n)[0]
 
 
-def make_sync(mode: str, blk: Block):
-    """Instantiate a SyncStrategy over the stacked `blk`."""
+def build_ring_blocks(
+    book: BlockRowBook,
+    features: np.ndarray,
+    labels: np.ndarray,
+    train_mask: np.ndarray,
+    *,
+    device: torch.device,
+) -> RingBlock:
+    """Stacked RingBlock on `device` from a 1.5D book + global node data."""
+    k, n, c = book.k, book.v_block + 1, book.c_max
+    x = book.local_features(features.astype(np.float32))
+    lab = book.local_labels(labels.astype(np.int32))
+    tm = np.zeros((k, n), dtype=bool)
+    safe = np.where(book.vglobal >= 0, book.vglobal, 0)
+    tm[:] = train_mask[safe]
+    tm &= book.vmask
+    vg = np.where(book.vglobal >= 0, book.vglobal, book.num_vertices)
+
+    rows_padded, _ = tiled_shape(n)
+    # [p, s, ...] chunk tables -> stage-major [s, p, ...]
+    esrc, edst, emask, order, ldst = (
+        a.transpose(1, 0, 2) for a in (
+            book.chunk_esrc.astype(np.int64), book.chunk_edst.astype(np.int64),
+            book.chunk_emask, book.chunk_agg_order.astype(np.int64),
+            book.chunk_agg_ldst))
+    stage = np.arange(k, dtype=np.int64)[:, None, None]
+    part = np.arange(k, dtype=np.int64)[None, :, None]
+    order = np.where(order == c, k * c, part * c + order)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return RingBlock(
+        x=t(x), labels=t(lab), train_mask=t(tm), degree=t(book.degree),
+        master=t(book.vmask), vmask=t(book.vmask), vglobal=t(vg, torch.int64),
+        ring_src=t((((part + stage) % k) * n + esrc).reshape(k, -1)),
+        ring_dst=t((part * n + edst).reshape(k, -1)),
+        ring_mask=t(emask.reshape(k, -1)),
+        agg_dst=t((part * rows_padded + edst).reshape(k, -1)),
+        agg_order=t(order.reshape(k, -1)),
+        agg_ldst=t(ldst.reshape(k, -1), torch.int32),
+        rows_padded=rows_padded,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class RingSync:
+    """1.5D ring-pipelined aggregation (CAGNET-style block rotation).
+
+    Stage s aggregates every partition's chunk (p, s) against the payload
+    block it holds after s hops of the reference's `ppermute` ring, one
+    `ops.aggregate` over the k stacked chunks; the stages run in order
+    0..k-1 and accumulate by `+` (or `maximum`), out of place. Every row
+    is owned exactly once, so there is no reduce/broadcast pair."""
+
+    def edge_aggregate(self, blk: RingBlock, payload: torch.Tensor, msg_fn,
+                       *, reduce: str = "sum", backend: str = "scatter"):
+        k, n, d = payload.shape
+        flat = payload.reshape(k * n, d)
+        acc = None
+        for s in range(k):
+            messages = msg_fn(flat[blk.ring_src[s]], blk.ring_dst[s],
+                              blk.ring_mask[s])
+            part = ops.aggregate(
+                messages, blk.agg_dst[s], k * blk.rows_padded,
+                edge_order=blk.agg_order[s], local_dst=blk.agg_ldst[s],
+                backend=backend, reduce=reduce,
+            ).reshape(k, blk.rows_padded, -1)[:, :n]
+            if acc is None:
+                acc = part
+            else:
+                acc = torch.maximum(acc, part) if reduce == "max" else acc + part
+        return acc.contiguous()
+
+    def psum(self, v):
+        return v.sum(0)
+
+
+SYNC_MODES = ("local", "dense", "halo", "ring")
+
+
+def _unknown(mode: str) -> ValueError:
+    return ValueError(f"unknown sync mode {mode!r}: valid strategies are "
+                      f"{', '.join(SYNC_MODES)}")
+
+
+def make_sync(mode: str, blk):
+    """Instantiate a SyncStrategy over the stacked `blk`: a `Block` for
+    local/dense/halo, a `RingBlock` for ring (1.5D layouts have no halo
+    tables)."""
     if mode == "local":
         return LocalSync()
+    if mode == "dense":
+        return DenseSync(blk=blk)
     if mode == "halo":
         return HaloSync(blk=blk)
-    raise ValueError(
-        f"unknown sync mode {mode!r}: this port has {', '.join(SYNC_MODES)}")
+    if mode == "ring":
+        if not isinstance(blk, RingBlock):
+            raise TypeError(
+                "sync mode 'ring' needs a RingBlock (build_ring_blocks over "
+                f"a BlockRowBook); got {type(blk).__name__}")
+        return RingSync()
+    raise _unknown(mode)
 
 
 def sync_bytes_per_round(book, d: int, mode: str) -> int:
     """Analytic collective volume of ONE complete aggregate, all devices
-    (the reference's NumPy accountant for the modes this port has)."""
+    (the reference's NumPy accountant, fp32). For halo/dense that is a
+    reduce+broadcast pair; for ring the k-1 `ppermute` stages."""
     if mode == "halo":
         # each of k devices sends a [k, B, d] f32 buffer per all_to_all and a
         # reduce+broadcast pair is 2 exchanges: 2·k²·B·d·4 bytes cluster-wide
         return 2 * book.k * book.k * book.bucket * d * 4
+    if mode == "dense":
+        # psum of [V+1, d] on k devices (ring all-reduce ~ 2x payload)
+        return 2 * book.k * (book.num_vertices + 1) * d * 4
+    if mode == "ring":
+        # k-1 ppermute stages, each device shipping its [Vb+1, d] f32 block
+        if not isinstance(book, BlockRowBook):
+            raise TypeError("ring volume needs a BlockRowBook")
+        return book.k * (book.k - 1) * (book.v_block + 1) * d * 4
     if mode == "local":
         return 0
-    raise ValueError(
-        f"unknown sync mode {mode!r}: this port has {', '.join(SYNC_MODES)}")
+    raise _unknown(mode)
+
+
+def ring_bytes_per_round(book: BlockRowBook, d: int) -> int:
+    """Cluster-wide `ppermute` bytes of one ring aggregate (k·(k−1)·(Vb+1)·d·4)."""
+    return sync_bytes_per_round(book, d, "ring")

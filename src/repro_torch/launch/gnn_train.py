@@ -3,7 +3,9 @@
 Twin of repro/launch/gnn_train.py, both regimes, fp32:
 
   --regime fullbatch  DistGNN-style: edge partitioning, replica sync over
-                      the stacked partitions; one step is one epoch
+                      the stacked partitions (`--sync-mode` halo, dense,
+                      or ring over contiguous block rows); one step is one
+                      epoch
   --regime minibatch  DistDGL-style: vertex partitioning, per-worker
                       sampling and feature loading (gnn/pipeline.py, serial
                       or `--overlap`), `train_count // batch` steps an epoch
@@ -23,6 +25,8 @@ the lossy wire codecs are not yet ported.
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --partitioner hep100 --k 4 --model sage --epochs 5
+  PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
+      --scale 0.05 --k 4 --model gat --sync-mode ring --epochs 5
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --partitioner metis --k 4 --regime minibatch --batch 256
 """
@@ -86,8 +90,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--graph", default="OR", choices=["HO", "DI", "EN", "EU", "OR"])
     ap.add_argument("--scale", type=float, default=0.05)
     ap.add_argument("--partitioner", default="hep100",
-                    help="edge partitioner (full batch) or vertex "
-                         "partitioner (mini batch)")
+                    help="edge partitioner (full batch; ring forces "
+                         "blockrow) or vertex partitioner (mini batch)")
     ap.add_argument("--k", type=int, default=4)
     ap.add_argument("--model", default="sage", choices=["sage", "gcn", "gat"])
     ap.add_argument("--regime", default="fullbatch",
@@ -102,7 +106,12 @@ def parser() -> argparse.ArgumentParser:
                     help="global mini-batch (seed vertices a step over all "
                          "workers; mini batch)")
     ap.add_argument("--sync-mode", default="halo", choices=list(SYNC_MODES),
-                    help="full batch: halo: static-routed replica exchange; "
+                    help="full-batch sync strategy (gnn/sync.py): halo: "
+                         "static-routed replica exchange; dense: the global "
+                         "sum baseline (a [V+1, d] buffer a partition, "
+                         "summed); ring: 1.5D block rotation over "
+                         "contiguous block rows (ignores --partitioner: the "
+                         "blockrow layout needs no partitioning pass); "
                          "local: no exchange (the k=1 oracle; at k > 1 the "
                          "partial aggregates stay partial)")
     ap.add_argument("--agg-backend", default="scatter",
@@ -201,11 +210,16 @@ def _peak(device: torch.device) -> Optional[int]:
 
 def _fullbatch(args, device, lr, g, spec, feats, labels,
                train_mask) -> TrainRun:
+    partitioner = args.partitioner
+    if args.sync_mode == "ring":
+        # 1.5D: contiguous blockrow layout, no partitioning heuristic — the
+        # near-zero partition time is the regime's selling point
+        partitioner = "blockrow"
     t0 = time.perf_counter()
-    assignment = partition_edges(g, args.k, args.partitioner, seed=args.seed)
+    assignment = partition_edges(g, args.k, partitioner, seed=args.seed)
     pt = time.perf_counter() - t0
     m = edge_partition_metrics(g, assignment, args.k)
-    print(f"[gnn] partitioned in {pt:.2f}s ({args.partitioner}): "
+    print(f"[gnn] partitioned in {pt:.2f}s ({partitioner}): "
           f"rf={m.replication_factor:.2f} "
           f"edge_bal={m.edge_balance:.2f} vertex_bal={m.vertex_balance:.2f}")
     tr = FullBatchTrainer.build(

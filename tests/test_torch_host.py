@@ -187,7 +187,8 @@ def test_serve_request_identical(model, hops):
 def test_fullbatch_accounting_identical(graphs, model, method):
     """The copied `fullbatch_epoch` and the trainers' `comm_bytes_per_epoch`
     / `memory_bytes_per_partition` give the reference's numbers bit for
-    bit on the same book (k=4)."""
+    bit on the same book (k=4), under each sync mode (ring on the
+    block-row book, which ignores the assignment)."""
     jg, tg = graphs
     a = j_ep.partition_edges(jg, 4, method, seed=0)
     kw = dict(model=model, feature_dim=16, hidden_dim=8, num_classes=5,
@@ -196,16 +197,21 @@ def test_fullbatch_accounting_identical(graphs, model, method):
     feats = rng.normal(size=(jg.num_vertices, 16)).astype(np.float32)
     labels = rng.integers(0, 5, jg.num_vertices).astype(np.int32)
     train = rng.random(jg.num_vertices) < 0.3
-    jt = j_fb.FullBatchTrainer.build(jg, a, 4, JSpec(**kw), feats, labels,
-                                     train, seed=0)
-    tt = t_fb.FullBatchTrainer.build(tg, a, 4, TSpec(**kw), feats, labels,
-                                     train, seed=0, device="cpu")
-    assert_same(jt.book, tt.book, "book")
-    assert_same(j_cost.fullbatch_epoch(jt.book, JSpec(**kw)),
-                t_cost.fullbatch_epoch(tt.book, TSpec(**kw)), "estimate")
-    assert jt.comm_bytes_per_epoch() == tt.comm_bytes_per_epoch()
-    assert_same(jt.memory_bytes_per_partition(),
-                tt.memory_bytes_per_partition(), "memory")
+    for sync_mode in ("halo", "dense", "ring"):
+        jt = j_fb.FullBatchTrainer.build(jg, a, 4, JSpec(**kw), feats,
+                                         labels, train, seed=0,
+                                         sync_mode=sync_mode)
+        tt = t_fb.FullBatchTrainer.build(tg, a, 4, TSpec(**kw), feats,
+                                         labels, train, seed=0, device="cpu",
+                                         sync_mode=sync_mode)
+        assert_same(jt.book, tt.book, f"{sync_mode} book")
+        assert_same(j_cost.fullbatch_epoch(jt.book, JSpec(**kw)),
+                    t_cost.fullbatch_epoch(tt.book, TSpec(**kw)),
+                    f"{sync_mode} estimate")
+        assert jt.comm_bytes_per_epoch() == tt.comm_bytes_per_epoch(), (
+            sync_mode)
+        assert_same(jt.memory_bytes_per_partition(),
+                    tt.memory_bytes_per_partition(), f"{sync_mode} memory")
 
 
 @pytest.mark.parametrize("policy", ["none", "degree", "halo"])

@@ -203,8 +203,9 @@ def test_serve_hops_validation(setup):
 
 @pytest.mark.parametrize("mode", ["halo", "local"])
 def test_sync_bytes_per_round_matches_jax(setup, mode):
-    """The port's halo accountant gives the reference's bytes; a mode the
-    port does not have raises."""
+    """The port's halo accountant gives the reference's bytes; an unknown
+    mode raises, and so does ring on an edge book (its volume needs a
+    BlockRowBook, as the reference's)."""
     from repro.core.partition_book import build_edge_book as j_ebook
     from repro.gnn.sync import sync_bytes_per_round as j_bytes
     from repro_torch.core.partition_book import build_edge_book
@@ -216,4 +217,6 @@ def test_sync_bytes_per_round_matches_jax(setup, mode):
     assert got == j_bytes(j_ebook(jg, a, 4), 8, mode)
     assert (got > 0) == (mode == "halo")
     with pytest.raises(ValueError, match="unknown sync mode"):
+        sync_bytes_per_round(build_edge_book(tg, a, 4), 8, "allgather")
+    with pytest.raises(TypeError, match="BlockRowBook"):
         sync_bytes_per_round(build_edge_book(tg, a, 4), 8, "ring")

@@ -20,7 +20,8 @@ the port's backends to the reference's tiled trainer):
   (g) the `gnn_train` CLI trains on the CPU with falling losses, and
       raises at once without `--device cpu` when no GPU is visible
   (h) the reference's unported flags are refused (`--regime minibatch` is
-      tests/test_torch_minibatch.py's)
+      tests/test_torch_minibatch.py's, `--sync-mode dense|ring`
+      tests/test_torch_sync.py's)
 """
 
 import os
@@ -423,7 +424,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--codec", "int8"], ["--ckpt-dir", "x"],
                                   ["--trace", "x"], ["--out-json", "x"],
-                                  ["--sync-mode", "ring"]])
+                                  ["--inject-fault", "x"]])
 def test_cli_refuses_unported_flags(argv):
     with pytest.raises(SystemExit):
         gnn_train.parser().parse_args(TINY + argv)
