@@ -115,17 +115,44 @@ ends the script with a traceback and a non-zero exit:
                the repeatable step (`determinism_probe`) and, per path, the
                device step's time with and without it on three fixed
                batches (runs with it must repeat bit for bit).
+  9. codecs  — the wire codecs (core/wire.py) at phases 7-8's widths, 5
+               steps a path, each beside its fp32 twin of phases 4, 7 and
+               8: full batch SAGE halo int8 tiled through `gnn_train
+               --codec int8`, GAT halo `variable` past its warmup (tiled
+               and scatter), SAGE halo bf16, SAGE dense bf16 and int8, and
+               on a ring book SAGE ring bf16 and int8 and GAT ring
+               `variable` past its warmup (GAT under int8 on halo or dense
+               gives a NaN loss at this size, as the reference's semantics
+               do; ROADMAP); mini batch GAT tiled int8 through `gnn_train
+               --regime minibatch --codec int8`, then overlapped; serving
+               `gnn_serve --codec int8` and `--codec bf16` (GAT tiled).
+               The launch counters set to 0 before and read after each
+               run. Asserts the launches (`expected_launches`,
+               `expected_minibatch_launches`; scatter none); every lossy
+               trajectory within CODEC_TOL (mini batch CODEC_TOL_MB) of
+               its fp32 twin, bf16 and `variable` within CODEC_TOL_BY,
+               int8 on the dense buffer and the ring payload finite only
+               (CODEC_UNBOUNDED), tiled == scatter within CODEC_TOL_BY;
+               every tiled lossy full-batch path repeats its 3-step losses,
+               final parameters and final EF carry bit for bit; mini-batch
+               overlapped == serial bit for bit, wire / miss bytes under
+               CODEC_WIRE_RATIO every step; codec fp32 == no codec bit for
+               bit (SAGE halo); small runs on the card == the CPU within
+               CODEC_CARD_TOL (CODEC_CARD_RUNS: int8 on halo, dense and
+               ring, bf16 on dense and ring). Prints warm step seconds,
+               peak GiB and wire MiB beside each fp32 twin, and the phase's
+               seconds.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phases 4, 7 and 8 made at that
-shape (phases 7 and 8 fail if they launched the kernel at a shape phase 5
+entry per shape of phase 5 with the launches phases 4, 7, 8 and 9 made at
+that shape (phases 7-9 fail if they launched the kernel at a shape phase 5
 did not time)
 and one per (attention kernel, shape, dtype) of phase 6, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
-training results (phase 8's under "minibatch") to
-chiprun_out/chip_smoke_train.json.
+training results (phase 8's under "minibatch", phase 9's under "codecs")
+to chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
 each over a GAT tiled full-batch training step at the training phase's
@@ -552,7 +579,8 @@ def recording(spmm, seen=None):
 
 def serve_once(torch, spmm, gnn_serve, argv, label, seen=None):
     """One gnn_serve run with the launch counters set to 0 just before it
-    and read just after (`recording`)."""
+    and read just after (`recording`). Returns the run, its launches and a
+    summary (host compute p50, layer seconds, peak, store bytes)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -571,9 +599,15 @@ def serve_once(torch, spmm, gnn_serve, argv, label, seen=None):
         f"p50 {np.percentile(rep.host_time, 50) * 1e3:.3f} ms/batch over "
         f"{len(rep.host_time)} batches, peak device memory "
         f"{peak / 2**30:.2f} GiB, served {rep.served()}, modeled p50 "
-        f"{rep.p50() * 1e3:.3f} ms p99 {rep.p99() * 1e3:.3f} ms, wall "
-        f"{wall:.1f}s")
-    return out, launches
+        f"{rep.p50() * 1e3:.3f} ms p99 {rep.p99() * 1e3:.3f} ms, store miss "
+        f"{rep.fetch.miss_bytes / 2**20:.3f} MiB, wire "
+        f"{rep.fetch.wire_bytes / 2**20:.3f} MiB, wall {wall:.1f}s")
+    summary = {
+        "host_compute_p50_ms": float(np.percentile(rep.host_time, 50) * 1e3),
+        "layer_seconds": list(out.inference.layer_times),
+        "peak_bytes": peak, "miss_bytes": rep.fetch.miss_bytes,
+        "wire_bytes": rep.fetch.wire_bytes}
+    return out, launches, summary
 
 
 def _launched(launches, combiner) -> int:
@@ -586,12 +620,13 @@ def _hold(a, b, what):
     say(f"[serve] {what}: max |diff| {diff:.3g} (rtol=atol=2e-4)")
 
 
-def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict]:
-    """The main path. Returns the launches of each tiled run by model, and
-    the inputs of the first launch at each shape (for phase 5)."""
-    main_launches, seen = {}, {}
+def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict, dict]:
+    """The main path. Returns the launches of each tiled run by model, the
+    inputs of the first launch at each shape (for phase 5) and each tiled
+    run's summary (phase 9's fp32 twins)."""
+    main_launches, seen, summaries = {}, {}, {}
     for model in ("gat", "sage"):
-        tiled, launches = serve_once(
+        tiled, launches, summaries[model] = serve_once(
             torch, spmm, gnn_serve,
             FULL_WIDTH + ["--model", model, "--agg-backend", "tiled"],
             f"{model} tiled (the kernel)", seen)
@@ -602,7 +637,7 @@ def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict]:
         emb, logits = tiled.embeddings, tiled.report.logits
         ids = tiled.report.served_ids
         del tiled
-        plain, launches = serve_once(
+        plain, launches, _ = serve_once(
             torch, spmm, gnn_serve,
             FULL_WIDTH + ["--model", model, "--agg-backend", "scatter"],
             f"{model} scatter (plain)")
@@ -624,7 +659,7 @@ def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict]:
     for li, (a, b) in enumerate(zip(gpu.embeddings, cpu.embeddings)):
         _hold(a, b, f"small gat layer {li}, card vs cpu")
     _hold(gpu.report.logits, cpu.report.logits, "small gat logits, card vs cpu")
-    return main_launches, seen
+    return main_launches, seen, summaries
 
 
 # ---------------------------------------------------------------- phase 7
@@ -637,13 +672,13 @@ def expandable_segments(torch, gnn_train) -> None:
     say(f"[train] allocator: {gnn_train.TRAIN_ALLOC_CONF} from here on")
 
 
-def hold_losses(a, b, what) -> float:
-    """Two loss trajectories of one length agree within LOSS_TOL at every
+def hold_losses(a, b, what, tol=LOSS_TOL) -> float:
+    """Two loss trajectories of one length agree within `tol` at every
     step; returns the largest |difference|."""
     assert len(a) == len(b) > 0, f"{what}: lengths {len(a)}, {len(b)}"
     diff = max(abs(x - y) for x, y in zip(a, b))
-    assert np.isfinite(a).all() and np.isfinite(b).all() and diff < LOSS_TOL, (
-        f"{what}: max |dloss| {diff:.3g} (limit {LOSS_TOL}): {a} vs {b}")
+    assert np.isfinite(a).all() and np.isfinite(b).all() and diff < tol, (
+        f"{what}: max |dloss| {diff:.3g} (limit {tol}): {a} vs {b}")
     return diff
 
 
@@ -752,30 +787,41 @@ def max_backward_check(torch, spmm, ops, tiling) -> dict:
     return {"edges": e, "rows": v, "F": f, "tied": tied, "bitwise": True}
 
 
-def _param_tensors(tr) -> list:
-    return [t.detach().clone() for layer in tr.params["layers"]
-            for t in layer.values()]
+def _param_tensors(tr, tree="params") -> list:
+    tree = getattr(tr, tree)
+    return [] if tree is None else [
+        t.detach().clone() for layer in tree["layers"]
+        for t in layer.values()]
 
 
 def repeat_check(torch, spmm, make, losses, what) -> dict:
     """Two fresh REPEAT_STEPS-step runs of trainer factory `make`: their
     losses against each other and against the first steps of `losses`, and
-    their final parameters against each other, each bit for bit."""
+    their final parameters (and, under a lossy codec, their final EF
+    carries) against each other, each bit for bit."""
     runs = []
     for _ in range(2):
         tr = make()
         runs.append((train_steps(torch, spmm, tr, REPEAT_STEPS)[0],
-                     _param_tensors(tr)))
+                     _param_tensors(tr), _param_tensors(tr, "ef_state")))
         del tr
-    (la, pa), (lb, pb) = runs
+    (la, pa, ea), (lb, pb, eb) = runs
     same_losses = la == lb == losses[:REPEAT_STEPS]
     same_params = all(torch.equal(x, y) for x, y in zip(pa, pb))
+    out = {"rerun_losses_bitwise_equal": same_losses,
+           "rerun_params_bitwise_equal": same_params}
+    ef_note = ""
+    if ea:
+        out["rerun_ef_bitwise_equal"] = all(
+            torch.equal(x, y) for x, y in zip(ea, eb))
+        ef_note = (", final EF carries "
+                   + ("bitwise equal" if out["rerun_ef_bitwise_equal"]
+                      else "differ"))
     say(f"[train] {what}: two {REPEAT_STEPS}-step reruns "
         f"{'repeat' if same_losses else 'differ from'} the run's losses "
         f"bit for bit ({la}, {lb}), final parameters "
-        f"{'bitwise equal' if same_params else 'differ'}")
-    return {"rerun_losses_bitwise_equal": same_losses,
-            "rerun_params_bitwise_equal": same_params}
+        f"{'bitwise equal' if same_params else 'differ'}{ef_note}")
+    return out
 
 
 def ring_shapes(torch, gnn_train, fullbatch, tiling, seen) -> None:
@@ -1277,6 +1323,296 @@ def phase_minibatch(torch, spmm, ref, tiling, gnn_train, minibatch, models,
     results["determinism_probe"] = probe
     results["hot_row_probe_ms"] = hot
     results["repeatable_cost"] = cost
+    return results, main_launches
+
+
+# ---------------------------------------------------------------- phase 9
+# the codec phase: every lossy loss trajectory within CODEC_TOL (full
+# batch; tests/test_wire.py:409) or CODEC_TOL_MB (mini batch; :408) of its
+# fp32 twin from phases 7-8, and within its codec's CODEC_TOL_BY where it
+# has one; card == CPU within CODEC_CARD_TOL (an int8 level may round the
+# other way); mini-batch wire / miss bytes under CODEC_WIRE_RATIO each step
+# (:439)
+CODEC_TOL = 0.1
+CODEC_TOL_MB = 0.05
+CODEC_CARD_TOL = 1e-3
+CODEC_WIRE_RATIO = 0.3
+# bf16 and `variable` (bf16 on the sum exchange past its warmup) moved 8e-5
+# to 4e-4 from fp32 in 5 steps at phase 9's widths, int8 on the halo
+# exchange 0.0121: this bound sits between them, so a bf16 encode gone as
+# coarse as int8 fails it
+CODEC_TOL_BY = {"bf16": 5e-3, "variable": 5e-3}
+# int8 on the dense buffer or the ring payload passes the gradient to the
+# model only through the scale (ROADMAP, reference caveats): SAGE dense
+# int8 moved 0.307 from fp32 in 5 steps, so these paths are held to finite
+# losses, to repeating bit for bit and to the CPU at a small size, and
+# their distance from fp32 is printed, not bounded
+CODEC_UNBOUNDED = {("dense", "int8"), ("ring", "int8")}
+# the small card == CPU runs: (sync, model, codec) at OR 0.02, widths 32
+CODEC_CARD_RUNS = [("halo", "gat", "int8"), ("dense", "sage", "int8"),
+                   ("ring", "sage", "int8"), ("dense", "sage", "bf16"),
+                   ("ring", "sage", "bf16")]
+
+
+def phase_codecs(torch, spmm, tiling, gnn_train, gnn_serve, fullbatch,
+                 models, optim, wire, train, serve_fp32) -> tuple[dict, dict]:
+    """The wire codecs at phases 7-8's widths, 5 steps a path, each beside
+    its fp32 twin from phases 4, 7 and 8 of this run: full batch (tiled)
+    SAGE halo int8 through `gnn_train --codec int8`, then through the
+    trainer API on its book GAT halo `variable` past its warmup (tiled and
+    scatter), SAGE halo bf16 and SAGE dense bf16 and int8; on a ring
+    (blockrow) book SAGE ring bf16 and int8 and GAT ring `variable` past
+    its warmup. Left out: GAT under int8 on halo or dense, whose loss is
+    NaN at this size, as the reference's is (ROADMAP, reference caveats: a
+    row's softmax denominator and numerator are quantised at independent
+    scales; `variable`, int8 only on the softmax shift, is the reference's
+    answer). Mini batch GAT tiled int8 through
+    `gnn_train --regime minibatch --codec int8` (serial), then overlapped;
+    serving `gnn_serve --codec int8` and `--codec bf16` (GAT tiled, phase
+    4's configuration). The launch counters are set to 0 before and read
+    after each run. Holds: launches as `expected_launches` /
+    `expected_minibatch_launches` (scatter: none); each lossy trajectory
+    within CODEC_TOL (mini batch CODEC_TOL_MB) of its fp32 twin, bf16 and
+    `variable` within CODEC_TOL_BY; int8 on the dense buffer or the ring's
+    payload, which passes the gradient to the model only by the scale,
+    finite only (CODEC_UNBOUNDED); tiled == scatter within CODEC_TOL_BY;
+    every tiled lossy full-batch path repeats its losses, final parameters
+    and final EF carry bit for bit; mini-batch overlapped == serial bit for
+    bit and wire / miss bytes under CODEC_WIRE_RATIO each step; codec fp32
+    == no codec bit for bit (SAGE halo, 3 steps); the card == the CPU at a
+    small size within CODEC_CARD_TOL on each of CODEC_CARD_RUNS. Prints
+    warm step seconds, peak GiB and wire MiB beside each fp32 twin.
+    Returns the results and the tiled runs' launches."""
+    runs, main_launches = {}, {}
+    mib = 2.0 ** 20
+
+    def record(key, tr, losses, seconds, launches, peak, twin, ring=False):
+        sync, model, backend, codec = key
+        warm = float(np.median(seconds[1:]))
+        fp32 = train[twin]
+        wire_b = tr.wire_bytes_per_epoch()
+        logical = tr.comm_bytes_per_epoch()
+        tol = (math.inf if (sync, codec) in CODEC_UNBOUNDED
+               else CODEC_TOL_BY.get(codec, CODEC_TOL))
+        diff = hold_losses(losses, fp32["losses"], f"{' '.join(key)} vs fp32",
+                           tol)
+        runs[key] = {
+            "losses": losses, "step_seconds": seconds,
+            "warm_step_seconds": warm, "peak_bytes": peak,
+            "wire_bytes_per_epoch": wire_b,
+            "logical_bytes_per_epoch": logical,
+            "fp32_twin": twin, "max_abs_dloss_vs_fp32": diff,
+            "fp32_warm_step_seconds": fp32["warm_step_seconds"],
+            "fp32_peak_bytes": fp32["peak_bytes"]}
+        say(f"[codecs] {' '.join(key)}: losses {losses}, warm step "
+            f"{warm:.4f}s (fp32 {fp32['warm_step_seconds']:.4f}s), peak "
+            f"{peak / 2**30:.2f} GiB (fp32 {fp32['peak_bytes'] / 2**30:.2f}), "
+            f"wire {wire_b / mib:.1f} MiB an epoch (fp32 {logical / mib:.1f}; "
+            f"analytic), max |dloss| vs fp32 {diff:.3g} (limit {tol})")
+        if backend == "scatter":
+            assert not launches, f"{key} launched {launches}"
+            return
+        k = tr.book.k
+        want = expected_launches(tr.spec, len(losses), k if ring else 1)
+        rows = {r for (_, r, _) in launches}
+        assert (_by_combiner_width(launches) == want
+                and rows == {k * tr.blocks.rows_padded}), (
+            f"{key}: launches {launches}, expected {want}")
+        main_launches[f"codec {' '.join(key)}"] = launches
+
+    def fresh(base, spec, sync, codec):
+        params = models.init_params(spec, seed=0, device=base.blocks.x.device)
+        return fullbatch.FullBatchTrainer(
+            spec=spec, book=base.book, blocks=base.blocks, sync_mode=sync,
+            params=params, opt_state=optim.adam_init(params), lr=base.lr,
+            codec=codec)
+
+    def api_run(base, key, spec, codec, twin, ring=False):
+        tr = fresh(base, spec, key[0], codec)
+        record(key, tr, *train_steps(torch, spmm, tr, TRAIN_STEPS), twin,
+               ring=ring)
+        if key[2] == "tiled":
+            res = runs[key]
+            res.update(repeat_check(
+                torch, spmm, lambda: fresh(base, spec, key[0], codec),
+                res["losses"], f"codec {' '.join(key)}"))
+            assert all(res[f"rerun_{x}_bitwise_equal"]
+                       for x in ("losses", "params", "ef")), (
+                f"{key}: a tiled lossy path does not repeat bit for bit")
+        del tr
+
+    t_phase = time.perf_counter()
+    # full batch, halo book (hep100): SAGE int8 through the CLI
+    torch.cuda.empty_cache()
+    with recording(spmm) as launches:
+        run = gnn_train.run(TRAIN_WIDTH + ["--model", "sage", "--agg-backend",
+                                           "tiled", "--codec", "int8"])
+    base = run.trainer
+    sage = base.spec
+    key = ("halo", "sage", "tiled", "int8")
+    record(key, base, run.losses, run.step_seconds, launches,
+           run.peak_memory, "halo sage tiled")
+    assert run.estimate.wire_bytes.sum() < run.estimate.comm_bytes.sum()
+    res = runs[key]
+    res.update(repeat_check(
+        torch, spmm, lambda: fresh(base, sage, "halo", "int8"),
+        res["losses"], "codec halo sage tiled int8"))
+    assert all(res[f"rerun_{x}_bitwise_equal"]
+               for x in ("losses", "params", "ef")), res
+    hard = wire.make_codec("variable").at_epoch(2)
+    gat = dataclasses.replace(sage, model="gat")
+    api_run(base, ("halo", "gat", "tiled", "variable"), gat, hard,
+            "halo gat tiled")
+    api_run(base, ("halo", "gat", "scatter", "variable"),
+            dataclasses.replace(gat, agg_backend="scatter"), hard,
+            "halo gat scatter")
+    diff = hold_losses(runs["halo", "gat", "tiled", "variable"]["losses"],
+                       runs["halo", "gat", "scatter", "variable"]["losses"],
+                       "halo gat variable tiled vs scatter",
+                       CODEC_TOL_BY["variable"])
+    say(f"[codecs] halo gat variable tiled vs scatter: max |dloss| "
+        f"{diff:.3g} (limit {CODEC_TOL_BY['variable']})")
+    api_run(base, ("halo", "sage", "tiled", "bf16"), sage, "bf16",
+            "halo sage tiled")
+    api_run(base, ("dense", "sage", "tiled", "bf16"), sage, "bf16",
+            "dense sage tiled")
+    api_run(base, ("dense", "sage", "tiled", "int8"), sage, "int8",
+            "dense sage tiled")
+    # the fp32 pin: codec "fp32" == no codec, losses and parameters
+    pinned = []
+    for codec in (None, "fp32"):
+        tr = fresh(base, sage, "halo", codec)
+        pinned.append((train_steps(torch, spmm, tr, REPEAT_STEPS)[0],
+                       _param_tensors(tr)))
+        del tr
+    (la, pa), (lb, pb) = pinned
+    assert la == lb and all(torch.equal(x, y) for x, y in zip(pa, pb)), (
+        f"codec fp32 != no codec: {la} vs {lb}")
+    say(f"[codecs] halo sage tiled: codec fp32 == no codec bit for bit over "
+        f"{REPEAT_STEPS} steps (losses {la}, final parameters)")
+    del base, run
+    torch.cuda.empty_cache()
+
+    # full batch, ring book (blockrow): SAGE bf16 and int8, GAT variable
+    # past warmup
+    args = gnn_train.parser().parse_args(
+        TRAIN_WIDTH + ["--model", "gat", "--agg-backend", "tiled",
+                       "--sync-mode", "ring"])
+    g, feats, labels, mask, spec = gnn_train.problem(args)
+    ring = fullbatch.FullBatchTrainer.build(
+        g, None, args.k, spec, feats, labels, mask, sync_mode="ring",
+        seed=args.seed, lr=float(TRAIN_LR), device=torch.device("cuda"))
+    api_run(ring, ("ring", "sage", "tiled", "bf16"), sage, "bf16",
+            "ring sage tiled", ring=True)
+    api_run(ring, ("ring", "sage", "tiled", "int8"), sage, "int8",
+            "ring sage tiled", ring=True)
+    api_run(ring, ("ring", "gat", "tiled", "variable"), spec, hard,
+            "ring gat tiled", ring=True)
+    del ring
+    torch.cuda.empty_cache()
+    results = {" ".join(k): r for k, r in runs.items()}
+
+    # mini batch: GAT tiled int8 through the CLI (serial), then overlapped
+    mb_fp32 = train["minibatch"]["gat tiled serial"]
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with recording(spmm) as launches:
+        run = gnn_train.run(MB_WIDTH + ["--model", "gat", "--agg-backend",
+                                        "tiled", "--codec", "int8"])
+    base = run.trainer
+    want = expected_minibatch_launches(base.spec, base.plan, tiling,
+                                       base.book.k, len(run.step_metrics))
+    assert dict(launches) == want, (dict(launches), want)
+    main_launches["codec minibatch gat int8 serial"] = launches
+    serial = run.losses
+    diff = hold_losses(serial, mb_fp32["losses"], "minibatch gat int8 vs fp32",
+                       CODEC_TOL_MB)
+    sms = run.step_metrics
+    ratios = [float(s.wire_bytes.sum() / s.miss_bytes.sum()) for s in sms]
+    assert max(ratios) < CODEC_WIRE_RATIO, ratios
+    warm = float(np.median([s.step_wall_host for s in sms[1:MB_STEPS]]))
+    wire_step = float(np.mean([s.wire_bytes.sum() for s in sms]))
+    miss_step = float(np.mean([s.miss_bytes.sum() for s in sms]))
+    mb = {"losses": serial, "warm_step_seconds": warm,
+          "peak_bytes": run.peak_memory, "max_abs_dloss_vs_fp32": diff,
+          "wire_over_miss": ratios, "wire_bytes_per_step": wire_step,
+          "miss_bytes_per_step": miss_step,
+          "fp32_warm_step_seconds": mb_fp32["warm_step_seconds"],
+          "fp32_peak_bytes": mb_fp32["peak_bytes"],
+          "wall_seconds": time.perf_counter() - t0}
+    say(f"[codecs] minibatch gat tiled int8 serial (CLI): losses {serial}, "
+        f"warm step {warm:.4f}s (fp32 {mb_fp32['warm_step_seconds']:.4f}s), "
+        f"peak {run.peak_memory / 2**30:.2f} GiB (fp32 "
+        f"{mb_fp32['peak_bytes'] / 2**30:.2f}), wire {wire_step / mib:.2f} "
+        f"MiB a step of {miss_step / mib:.2f} MiB logical miss bytes (ratio "
+        f"<= {max(ratios):.4f}), max |dloss| vs fp32 {diff:.3g} (limit "
+        f"{CODEC_TOL_MB})")
+    params = models.init_params(base.spec, seed=0, device=base.device)
+    over = dataclasses.replace(
+        base, params=params, opt_state=optim.adam_init(params), overlap=True,
+        prefetch_depth=2, ef_state=None)
+    sms_o, launches, peak = mb_steps(torch, spmm, over, MB_STEPS)
+    assert dict(launches) == expected_minibatch_launches(
+        base.spec, base.plan, tiling, base.book.k, MB_STEPS)
+    main_launches["codec minibatch gat int8 overlap"] = launches
+    over_losses = [s.loss for s in sms_o]
+    assert over_losses == serial[:MB_STEPS], (over_losses, serial)
+    mb["overlap"] = {
+        "losses": over_losses, "peak_bytes": peak,
+        "warm_step_seconds": float(np.median(
+            [s.step_wall_host for s in sms_o[1:]])),
+        "fp32_warm_step_seconds":
+            train["minibatch"]["gat tiled overlap"]["warm_step_seconds"]}
+    say(f"[codecs] minibatch gat tiled int8 overlapped == serial bit for bit "
+        f"over {MB_STEPS} steps; warm step "
+        f"{mb['overlap']['warm_step_seconds']:.4f}s (fp32 "
+        f"{mb['overlap']['fp32_warm_step_seconds']:.4f}s), peak "
+        f"{peak / 2**30:.2f} GiB")
+    results["minibatch gat tiled int8"] = mb
+    del base, run, over
+    torch.cuda.empty_cache()
+
+    # serving: GAT tiled with int8 and bf16 embedding stores
+    for codec in ("int8", "bf16"):
+        out, launches, summary = serve_once(
+            torch, spmm, gnn_serve,
+            FULL_WIDTH + ["--model", "gat", "--agg-backend", "tiled",
+                          "--codec", codec], f"gat tiled {codec} store")
+        assert _launched(launches, "sum") > 0 and _launched(launches, "max")
+        main_launches[f"codec serve gat {codec}"] = launches
+        fp32 = serve_fp32["gat"]
+        assert summary["miss_bytes"] == fp32["miss_bytes"], (summary, fp32)
+        if codec == "bf16":
+            assert summary["wire_bytes"] * 2 == summary["miss_bytes"]
+        else:
+            assert summary["wire_bytes"] < CODEC_WIRE_RATIO * summary[
+                "miss_bytes"]
+        summary["fp32"] = fp32
+        results[f"serve gat tiled {codec}"] = summary
+        say(f"[codecs] serve gat tiled {codec}: host compute p50 "
+            f"{summary['host_compute_p50_ms']:.3f} ms/batch (fp32 "
+            f"{fp32['host_compute_p50_ms']:.3f}), peak "
+            f"{summary['peak_bytes'] / 2**30:.2f} GiB (fp32 "
+            f"{fp32['peak_bytes'] / 2**30:.2f}), wire "
+            f"{summary['wire_bytes'] / mib:.3f} MiB (fp32 "
+            f"{fp32['wire_bytes'] / mib:.3f})")
+        del out
+
+    # small runs on the card and on the CPU
+    for sync, model, codec in CODEC_CARD_RUNS:
+        small = ["--graph", "OR", "--scale", "0.02", "--k", "4", "--model",
+                 model, "--sync-mode", sync, "--agg-backend", "tiled",
+                 "--features", "32", "--hidden", "32", "--layers", "3",
+                 "--epochs", "5", "--codec", codec]
+        card = gnn_train.run(small + ["--device", "cuda"]).losses
+        cpu = gnn_train.run(small + ["--device", "cpu"]).losses
+        what = f"small {model} {sync} {codec}"
+        diff = hold_losses(card, cpu, f"{what}, card vs cpu", CODEC_CARD_TOL)
+        say(f"[codecs] {what} (OR 0.02, width 32), card vs cpu: max |dloss| "
+            f"{diff:.3g} (limit {CODEC_CARD_TOL})")
+        results[f"{what} card vs cpu max_abs_dloss"] = diff
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[codecs] phase 9 took {results['phase_seconds']:.1f}s")
     return results, main_launches
 
 
@@ -1861,6 +2197,7 @@ def main() -> int:
     from repro_torch.kernels import segment_spmm as spmm
     from repro_torch.kernels import tiling
     from repro_torch import optim
+    from repro_torch.core import wire
     from repro_torch.core.vertex_partition import partition_vertices
     from repro_torch.gnn import fullbatch, minibatch, models
     from repro_torch.kernels import ref
@@ -1879,7 +2216,7 @@ def main() -> int:
         return 0
     rows_out = phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod)
     say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
-    launches, seen = phase_serve(torch, spmm, gnn_serve)
+    launches, seen, serve_fp32 = phase_serve(torch, spmm, gnn_serve)
     say(f"[time] serve {time.perf_counter() - t_start:.1f}s")
     minibatch_shapes(torch, gnn_train, minibatch, partition_vertices, tiling,
                      seen)
@@ -1897,12 +2234,18 @@ def main() -> int:
     train["minibatch"], mb_launches = phase_minibatch(
         torch, spmm, ref, tiling, gnn_train, minibatch, models, optim)
     say(f"[time] minibatch {time.perf_counter() - t_start:.1f}s")
-    for run, n in {**train_launches, **mb_launches}.items():
+    train["codecs"], codec_launches = phase_codecs(
+        torch, spmm, tiling, gnn_train, gnn_serve, fullbatch, models, optim,
+        wire, train, serve_fp32)
+    say(f"[time] codecs {time.perf_counter() - t_start:.1f}s")
+    for run, n in {**train_launches, **mb_launches,
+                   **codec_launches}.items():
         assert set(n) <= set(shapes), (
             f"{run} launched the kernel at shapes phase 5 did not time: "
             f"{sorted(set(n) - set(shapes))}")
     launches.update(train_launches)
     launches.update(mb_launches)
+    launches.update(codec_launches)
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -1913,7 +2256,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_spmm.py:59",
             # launches at this shape over the GAT and SAGE tiled serving,
-            # full-batch and mini-batch training runs
+            # full-batch and mini-batch training runs, with and without a
+            # lossy codec
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "E_tiled": row["E_tiled"],

@@ -1,8 +1,9 @@
 # Copy of the serving, full-batch and mini-batch parts of
-# repro/core/cost_model.py (NumPy only), fp32 wire only.
-# tests/test_torch_host.py and tests/test_torch_sync.py hold `serve_request`,
-# `fullbatch_epoch` (edge and block-row books), `ring_bytes_per_round`,
-# `minibatch_step` and `overlapped_step_time` equal to the originals.
+# repro/core/cost_model.py (NumPy, with the port's wire codecs).
+# tests/test_torch_host.py, tests/test_torch_sync.py and
+# tests/test_torch_wire.py hold `serve_request`, `fullbatch_epoch` (edge and
+# block-row books), `ring_bytes_per_round`, `minibatch_step`,
+# `overlapped_step_time` and `collective_budget` equal to the originals.
 """Cluster cost model — prices one serving micro-batch, one full-batch
 training epoch and one mini-batch training step on the paper's 32-machine
 cluster (§3: 8-core Haswell 2.4 GHz, 64 GB RAM).
@@ -11,7 +12,10 @@ The inputs (per-partition edges, vertices and replica rows; per-batch
 input vertices, remote vertices, cache misses, MFG edges) are measured
 from the real partition books and sampled batches; only the hardware
 constants below are assumed. These are modeled times for the paper's
-cluster, not times of the device the port runs on.
+cluster, not times of the device the port runs on. Every estimate takes a
+wire `codec` (core/wire.py) and prices the encoded bytes beside the
+logical ones; the fp32 default prices 4 bytes an element, bit for bit the
+codec-free model.
 
 Conventions: times in seconds, sizes in bytes, rates in bytes/s or flop/s.
 """
@@ -24,14 +28,17 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 
 from repro_torch.core.partition_book import BlockRowBook
+from repro_torch.core.wire import as_codec
+# re-exported so every analytic communication quantity comes from one module
+from repro_torch.gnn.sync import collective_budget
 
 if TYPE_CHECKING:
     from repro_torch.gnn.models import GNNSpec
 
 __all__ = ["ClusterSpec", "FullBatchEstimate", "MiniBatchEstimate",
-           "PAPER_CLUSTER", "ServeEstimate", "fullbatch_epoch",
-           "minibatch_step", "overlapped_step_time", "ring_bytes_per_round",
-           "serve_request"]
+           "PAPER_CLUSTER", "ServeEstimate", "collective_budget",
+           "fullbatch_epoch", "minibatch_step", "overlapped_step_time",
+           "ring_bytes_per_round", "serve_request"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +98,14 @@ def _agg_bytes_per_edge(spec: "GNNSpec") -> float:
     return float(sum(3 * 4 * d for d in dims))
 
 
+def _wire_elem(codec, layer: int = 0) -> float:
+    """Wire bytes of one f32 logical element under `codec` at aggregate
+    ordinal `layer`. The per-tensor meta (int8's scale) is dropped at this
+    granularity; `Codec.wire_bytes` and `gnn.sync.sync_wire_bytes_per_round`
+    count it. Exactly 4.0 under fp32."""
+    return 4.0 * as_codec(codec).ratio(layer)
+
+
 @dataclasses.dataclass(frozen=True)
 class FullBatchEstimate:
     epoch_time: float
@@ -99,7 +114,8 @@ class FullBatchEstimate:
     comm_bytes: np.ndarray       # [k] true (unpadded) replica-sync traffic
     memory: np.ndarray           # [k] bytes
     oom: bool
-    # [k] encoded bytes crossing the network; == comm_bytes (fp32 wire)
+    # [k] encoded bytes crossing the network under the codec the estimate
+    # was priced with; == comm_bytes for fp32
     wire_bytes: Optional[np.ndarray] = None
 
 
@@ -119,9 +135,9 @@ def _ring_epoch(
     book: BlockRowBook,
     spec: "GNNSpec",
     cluster: ClusterSpec,
+    codec=None,
 ) -> FullBatchEstimate:
-    """Overlap-aware 1.5D ring epoch estimate (fp32 wire: 4 bytes an
-    element).
+    """Overlap-aware 1.5D ring epoch estimate.
 
     Each aggregate is k stages of per-chunk segment-SpMM with the next
     block's `ppermute` in flight: a stage's transfer is hidden when the
@@ -145,12 +161,14 @@ def _ring_epoch(
     stage_rows = float(book.v_block + 1)
     comm_bytes = np.full(k, (k - 1) * stage_rows * 4 * sum(dims) * syncs)
     wire_bytes = np.zeros(k)
-    for d in dims:
-        wire_bytes += (k - 1) * stage_rows * 4.0 * d * syncs
+    for li, d in enumerate(dims):
+        eb = _wire_elem(codec, li * aggs_per_layer)
+        wire_bytes += (k - 1) * stage_rows * eb * d * syncs
     comm = np.zeros(k)
     if k > 1:
-        for d in dims:
-            t_stage = (stage_rows * d * 4.0 / cluster.net_bw
+        for li, d in enumerate(dims):
+            eb = _wire_elem(codec, li * aggs_per_layer)
+            t_stage = (stage_rows * d * eb / cluster.net_bw
                        + cluster.net_latency)
             # per-stage chunk compute: this layer's aggregation share of the
             # memory-bound traffic, spread over the k chunks
@@ -183,8 +201,7 @@ def fullbatch_epoch(
     cluster: ClusterSpec = PAPER_CLUSTER,
     codec=None,
 ) -> FullBatchEstimate:
-    """Full-batch epoch estimate from a real partition book, fp32 wire
-    only: 4 bytes an element.
+    """Full-batch epoch estimate from a real partition book.
 
     EdgePartitionBook (DistGNN/halo regime) —
     Compute: aggregation is memory-bound over local edges; vertex updates are
@@ -197,11 +214,8 @@ def fullbatch_epoch(
     BlockRowBook (1.5D ring regime) — see `_ring_epoch`: fixed rotation
     volume with the transfer overlapped against per-chunk compute.
     """
-    if codec not in (None, "fp32"):
-        raise NotImplementedError(f"wire codec {codec!r} is not yet ported; "
-                                  "this port has fp32 only")
     if isinstance(book, BlockRowBook):
-        return _ring_epoch(book, spec, cluster)
+        return _ring_epoch(book, spec, cluster, codec)
     k = book.k
     edges = book.emask.sum(axis=1).astype(np.float64)
     verts = book.vmask.sum(axis=1).astype(np.float64)
@@ -221,9 +235,9 @@ def fullbatch_epoch(
     rows = send_rows + recv_rows
     comm_bytes = np.zeros(k)
     wire_bytes = np.zeros(k)
-    for d in dims:
+    for li, d in enumerate(dims):
         comm_bytes += rows * d * 4 * syncs
-        wire_bytes += rows * d * 4.0 * syncs
+        wire_bytes += rows * d * _wire_elem(codec, li * aggs_per_layer) * syncs
     comm = wire_bytes / cluster.net_bw + cluster.net_latency * 2 * len(dims) * syncs
 
     # memory: features + per-layer activations (kept for backward) + graph
@@ -256,7 +270,8 @@ class MiniBatchEstimate:
     straggler: int            # argmax worker
     memory: np.ndarray        # [k]
     allreduce_time: float = 0.0  # gradient all-reduce (shared by both modes)
-    # [k] feature-fetch bytes on the wire; == fetch_bytes (fp32 wire)
+    # [k] encoded feature-fetch bytes on the wire under the pricing codec;
+    # == fetch_bytes for fp32
     wire_bytes: Optional[np.ndarray] = None
 
 
@@ -286,12 +301,8 @@ def minibatch_step(
     fetch phase from missed bytes (default: every remote vertex misses, the
     uncached DistDGL behavior) and `cached_vertices` [k] to charge the cache
     copies to worker memory. Sampling still pays `remote_vertices` adjacency
-    costs — the cache holds features, not adjacency. fp32 wire only: 4
-    bytes an element.
+    costs — the cache holds features, not adjacency.
     """
-    if codec not in (None, "fp32"):
-        raise NotImplementedError(f"wire codec {codec!r} is not yet ported; "
-                                  "this port has fp32 only")
     input_vertices = input_vertices.astype(np.float64)
     remote = remote_vertices.astype(np.float64)
     edges = edges.astype(np.float64)
@@ -301,7 +312,7 @@ def minibatch_step(
     sample = (edges / cluster.sample_rate + remote * cluster.remote_adj_cost
               + cluster.sample_hop_overhead * spec.num_layers)
     fetch_bytes = miss * spec.feature_dim * 4
-    wire_bytes = miss * spec.feature_dim * 4.0
+    wire_bytes = miss * spec.feature_dim * _wire_elem(codec)
     fetch = wire_bytes / cluster.net_bw + cluster.net_latency
 
     # dense flops: each sampled edge moves a d-dim message once per layer;
@@ -314,7 +325,8 @@ def minibatch_step(
     straggler = int(np.argmax(per_worker))
 
     n_params = sum(din * dout for din, dout in spec.dims()) * 2
-    allreduce = (2 * n_params * 4.0 / cluster.net_bw + cluster.net_latency)
+    allreduce = (2 * n_params * _wire_elem(codec) / cluster.net_bw
+                 + cluster.net_latency)
 
     f = spec.feature_dim
     memory = (
@@ -357,8 +369,8 @@ class ServeEstimate:
     sample_time: float
     fetch_time: float
     compute_time: float
-    fetch_bytes: int      # embedding-store MISS bytes, f32
-    wire_bytes: int = 0   # == fetch_bytes (fp32 wire)
+    fetch_bytes: int      # embedding-store MISS bytes, logical (f32) size
+    wire_bytes: int = 0   # encoded MISS bytes; == fetch_bytes under fp32
 
 
 def serve_request(
@@ -371,18 +383,20 @@ def serve_request(
     embed_dim: int,
     hops: int,
     cluster: ClusterSpec = PAPER_CLUSTER,
+    codec=None,
 ) -> ServeEstimate:
     """Price one serving micro-batch from its measured MFG + store metrics:
     sampling the `hops`-deep MFG (remote adjacency accesses cost network
-    latency), fetching the cache-MISS embedding rows (`embed_dim` * 4 bytes
-    each) and recomputing the last `hops` layers, forward only."""
+    latency), fetching the cache-MISS embedding rows (`embed_dim` elements
+    each, at the codec's wire bytes an element) and recomputing the last
+    `hops` layers, forward only."""
     num_input = float(num_input)
     edges = float(edges)
     sample = (edges / cluster.sample_rate
               + float(num_remote) * cluster.remote_adj_cost
               + cluster.sample_hop_overhead * hops)
     fetch_bytes = int(num_miss) * embed_dim * 4
-    wire_bytes = int(round(int(num_miss) * embed_dim * 4.0))
+    wire_bytes = int(round(int(num_miss) * embed_dim * _wire_elem(codec)))
     fetch = wire_bytes / cluster.net_bw + cluster.net_latency
 
     # forward-only dense flops over the recomputed layer suffix

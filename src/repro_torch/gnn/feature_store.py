@@ -1,6 +1,7 @@
-# Copy of repro/gnn/feature_store.py (NumPy only), fp32 rows only: the wire
-# codecs, the fault-injection seam and the tracer calls are left out.
-# tests/test_torch_host.py holds its results equal to the original.
+# Copy of repro/gnn/feature_store.py (NumPy only, with the port's wire
+# codecs): the fault-injection seam and the tracer calls are left out.
+# tests/test_torch_host.py and tests/test_torch_wire.py hold its results
+# equal to the original.
 """Partitioned row stores: owner shards + per-worker static caches.
 
 `RowStore` is a partitioned store of [V, d] rows keyed by vertex id — feature
@@ -19,7 +20,12 @@ static cache of remote vertices selected by one of four policies:
 remote-miss} and returns the assembled row block plus a `FetchStats` record
 (counts and bytes per class). Only *miss* bytes cross the network —
 `core/cost_model.py` prices the training fetch phase (`minibatch_step`) and
-the serving fetch phase (`serve_request`) from them. `FeatureStore` is the
+the serving fetch phase (`serve_request`) from them. A store built with a
+lossy wire codec (core/wire.py) serves miss rows from their encoded remote
+representation: `gather` roundtrips the miss block through encode/decode
+on the host (local and cache rows never cross the network and stay
+exact), and `FetchStats.wire_bytes` is the measured payload + meta bytes
+beside the logical `miss_bytes` (equal under fp32). `FeatureStore` is the
 feature-flavored front the mini-batch trainer loads its input rows through.
 """
 
@@ -32,6 +38,7 @@ import numpy as np
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition_book import VertexPartitionBook
+from repro_torch.core.wire import Codec, as_codec
 
 __all__ = [
     "CACHE_POLICIES",
@@ -47,8 +54,9 @@ CACHE_POLICIES = ("none", "random", "degree", "halo")
 class FetchStats(NamedTuple):
     """Per-lookup feature-loading accounting (one worker, one batch).
 
-    `miss_bytes` is the f32 volume of rows that crossed the network;
-    `wire_bytes` is what was shipped for them (== miss_bytes: fp32 only).
+    `miss_bytes` is the logical (f32) volume of rows that crossed the
+    network; `wire_bytes` is what the store's codec shipped for them
+    (== miss_bytes under fp32).
     """
 
     num_input: int
@@ -151,6 +159,8 @@ class RowStore:
     cache_sizes: np.ndarray         # int64 [k]: true cache entries per worker
     cache_rows: Optional[np.ndarray]  # [k, max_cache, d] cached copies
     rows: Optional[np.ndarray]        # global [V, d] (None = accounting-only)
+    # wire codec for remote-miss rows (None -> fp32 == exact)
+    codec: Optional[Codec] = None
 
     @classmethod
     def create(
@@ -162,6 +172,7 @@ class RowStore:
         row_dim: Optional[int] = None,
         policy: str = "none",
         budget: int = 0,
+        codec=None,
     ) -> "RowStore":
         """Build a store whose worker-w cache holds `cache_vertices[w]`.
 
@@ -188,7 +199,7 @@ class RowStore:
             book=book, policy=policy, budget=int(budget),
             row_dim=row_dim, bytes_per_row=4 * row_dim,
             cache_ids=cache_ids, cache_sizes=sizes, cache_rows=crows,
-            rows=rows,
+            rows=rows, codec=as_codec(codec),
         )
 
     @classmethod
@@ -202,12 +213,13 @@ class RowStore:
         rows: Optional[np.ndarray] = None,
         row_dim: Optional[int] = None,
         seed: int = 0,
+        codec=None,
     ) -> "RowStore":
         """Select the per-worker caches with `select_cache_vertices`, then
         `create` (which subclasses do NOT override, unlike `build`)."""
         ids = select_cache_vertices(graph, book, policy, budget, seed=seed)
         return cls.create(book, ids, rows=rows, row_dim=row_dim,
-                          policy=policy, budget=budget)
+                          policy=policy, budget=budget, codec=codec)
 
     def cached_ids(self, worker: int) -> np.ndarray:
         """Global ids cached at `worker` (sorted, cache-row order)."""
@@ -233,7 +245,7 @@ class RowStore:
             num_input=int(ids.shape[0]),
             num_local=nl, num_cache_hit=nh, num_remote_miss=nm,
             local_bytes=nl * b, hit_bytes=nh * b, miss_bytes=nm * b,
-            wire_bytes=nm * b,
+            wire_bytes=as_codec(self.codec).wire_bytes((nm, self.row_dim)),
         )
 
     def stats(self, worker: int, ids: np.ndarray) -> FetchStats:
@@ -251,8 +263,20 @@ class RowStore:
         out[local] = self.rows[ids[local]]                          # owner shard
         slot = np.searchsorted(self.cached_ids(worker), ids[hit])
         out[hit] = self.cache_rows[worker, slot]
-        out[miss] = self.rows[ids[miss]]                            # remote fetch
-        return out, self._stats_of(ids, local, hit, miss)
+        codec = as_codec(self.codec)
+        miss_rows = self.rows[ids[miss]]                            # remote fetch
+        wire = miss_rows.nbytes  # fp32 ships the rows as they are
+        if not codec.lossless and miss_rows.shape[0]:
+            # the remote side ships the encoded rows; only their decoded
+            # view exists at this worker
+            payload, meta = codec.encode(miss_rows)
+            wire = payload.nbytes + (0 if meta is None
+                                     else np.asarray(meta).nbytes)
+            miss_rows = np.asarray(codec.decode(payload, meta),
+                                   dtype=self.rows.dtype)
+        out[miss] = miss_rows
+        stats = self._stats_of(ids, local, hit, miss)
+        return out, stats._replace(wire_bytes=wire)
 
 
 class FeatureStore(RowStore):
@@ -271,13 +295,14 @@ class FeatureStore(RowStore):
         features: Optional[np.ndarray] = None,
         feature_dim: Optional[int] = None,
         seed: int = 0,
+        codec=None,
     ) -> "FeatureStore":
         """Build the store. With `features=None` the store is accounting-only
         (split/stats work, gather does not) — `feature_dim` then sizes the
         byte metrics."""
         return cls.from_policy(
             graph, book, policy=policy, budget=budget,
-            rows=features, row_dim=feature_dim, seed=seed,
+            rows=features, row_dim=feature_dim, seed=seed, codec=codec,
         )
 
     @property

@@ -12,8 +12,14 @@ the reference's stage functions:
   make_step_fns       loss / forward closed over the SyncStrategy
 
 `FullBatchTrainer` composes them and trains with the reference's Adam
-(optim/adam.py). Local, dense, halo and ring sync, fp32 wire; the
-shard_map mode and the lossy codecs are not yet ported.
+(optim/adam.py), under local, dense, halo or ring sync and any wire codec
+(core/wire.py). The fp32 codec (the default) takes the lossless step:
+one gradient of the loss through shared leaves, bit for bit the codec-free
+step. A lossy codec takes the reference's error-feedback step: each
+partition's gradient k * dL/dW_j through per-partition parameter copies
+(`models.per_partition_grads`), their compressed mean with the EF carry
+(`codec_grad_reduce`), then Adam on the mean. The shard_map mode is not
+yet ported (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from repro_torch.core.partition_book import (
     build_blockrow_book,
     build_edge_book,
 )
+from repro_torch.core.wire import as_codec, codec_grad_reduce, ef_init
 from repro_torch.gnn import models
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sync import (
@@ -39,8 +46,16 @@ from repro_torch.gnn.sync import (
     build_ring_blocks,
     make_sync,
     sync_bytes_per_round,
+    sync_wire_bytes_per_round,
 )
-from repro_torch.optim import AdamState, adam_init, adam_step, leaves
+from repro_torch.optim import (
+    AdamState,
+    adam_init,
+    adam_step,
+    adam_update,
+    leaves,
+    tree_map,
+)
 
 
 def build_book(
@@ -83,16 +98,18 @@ def resolve_sync_mode(sync_mode: str, k: int) -> str:
     return sync_mode
 
 
-def make_step_fns(spec: GNNSpec, sync_mode: str, k: int):
+def make_step_fns(spec: GNNSpec, sync_mode: str, k: int, codec=None):
     """(loss_fn, forward_fn), each `(params, blk) -> ...` over the stacked
     partitions: the loss a scalar, the logits [k, n, C]."""
     mode = resolve_sync_mode(sync_mode, k)
 
     def loss(params, blk):
-        return models.loss_fn(spec, params, blk.x, blk, make_sync(mode, blk))
+        return models.loss_fn(spec, params, blk.x, blk,
+                              make_sync(mode, blk, codec=codec))
 
     def forward(params, blk):
-        return models.forward(spec, params, blk.x, blk, make_sync(mode, blk))
+        return models.forward(spec, params, blk.x, blk,
+                              make_sync(mode, blk, codec=codec))
 
     return loss, forward
 
@@ -106,6 +123,8 @@ class FullBatchTrainer:
     params: Any = None
     opt_state: Optional[AdamState] = None
     lr: float = 1e-2
+    codec: Any = None                  # wire codec name/instance (None=fp32)
+    ef_state: Any = None               # error-feedback carry (lossy codecs)
 
     @classmethod
     def build(
@@ -121,6 +140,7 @@ class FullBatchTrainer:
         sync_mode: str = "halo",
         seed: int = 0,
         lr: float = 1e-2,
+        codec=None,
         device: torch.device,
     ) -> "FullBatchTrainer":
         book = build_book(
@@ -131,21 +151,53 @@ class FullBatchTrainer:
                                      device=device)
         params = models.init_params(spec, seed=seed, device=device)
         return cls(spec=spec, book=book, blocks=blocks, sync_mode=sync_mode,
-                   params=params, opt_state=adam_init(params), lr=lr)
+                   params=params, opt_state=adam_init(params), lr=lr,
+                   codec=codec)
 
     @functools.cached_property
     def _step_fns(self):
-        return make_step_fns(self.spec, self.sync_mode, self.book.k)
+        return make_step_fns(self.spec, self.sync_mode, self.book.k,
+                             codec=self.codec)
+
+    def _init_ef(self):
+        """Per-partition zero EF residuals, stacked [k, ...] like the
+        blocks; no leading k at k == 1 (the reference's carry)."""
+        k = self.book.k
+        if k == 1:
+            return ef_init(self.params)
+        return ef_init(tree_map(lambda p: p.expand((k,) + p.shape),
+                                self.params))
 
     def train_step(self) -> float:
         """One Adam step on the full graph; returns the loss before the
         update. Reading it waits for the whole step, update included (one
         stream)."""
         loss_of, _ = self._step_fns
-        loss, self.params, self.opt_state = adam_step(
-            lambda params: loss_of(params, self.blocks), self.params,
-            self.opt_state, lr=self.lr)
+        codec = as_codec(self.codec)
+        if codec.lossless:
+            loss, self.params, self.opt_state = adam_step(
+                lambda params: loss_of(params, self.blocks), self.params,
+                self.opt_state, lr=self.lr)
+            return float(loss)
+        k = self.book.k
+        if self.ef_state is None:
+            self.ef_state = self._init_ef()
+        loss, grads = models.per_partition_grads(
+            lambda params: loss_of(params, self.blocks), self.params, k=k,
+            stacked=k > 1)
+        mean, self.ef_state = codec_grad_reduce(codec, grads, self.ef_state,
+                                                stacked=k > 1)
+        self.params, self.opt_state = adam_update(
+            mean, self.opt_state, self.params, lr=self.lr)
         return float(loss)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Advance an epoch-scheduled codec (VariableRatioCodec); the step
+        functions, which close over the codec, are rebuilt."""
+        advance = getattr(as_codec(self.codec), "at_epoch", None)
+        if advance is not None:
+            self.codec = advance(epoch)
+            self.__dict__.pop("_step_fns", None)
 
     def forward_logits_global(self) -> np.ndarray:
         """Master-row logits gathered to a global [V, C] array (testing)."""
@@ -172,6 +224,24 @@ class FullBatchTrainer:
         # gradient all-reduce of the (replicated) model parameters
         n_params = sum(int(np.prod(p.shape)) for p in leaves(self.params))
         total += 2 * self.book.k * n_params * 4
+        return total
+
+    def wire_bytes_per_epoch(self) -> int:
+        """Codec-aware twin of `comm_bytes_per_epoch`: the bytes that cross
+        the network once payloads are encoded (== the logical number under
+        fp32), each aggregate at its ordinal."""
+        codec = as_codec(self.codec)
+        total = 0
+        ordinal = 0
+        for layer_dims in self.spec.aggregate_dims(self.sync_mode):
+            for d in layer_dims:
+                per = sync_wire_bytes_per_round(
+                    self.book, d, self.sync_mode, codec, layer=ordinal)
+                total += per * 2  # fwd + bwd
+                ordinal += 1
+        # gradient all-reduce, priced per leaf (per-tensor codec meta)
+        leaf_bytes = sum(codec.wire_bytes(p.shape) for p in leaves(self.params))
+        total += 2 * self.book.k * leaf_bytes
         return total
 
     def memory_bytes_per_partition(self) -> np.ndarray:

@@ -135,12 +135,14 @@ def build_embedding_stores(
     policy: str = "none",
     budget: int = 0,
     seed: int = 0,
+    codec=None,
 ) -> list:
     """Freeze per-layer embeddings into `RowStore`s sharded by `book`, with
-    one cache-vertex selection shared by every layer's store."""
+    one cache-vertex selection shared by every layer's store; `codec` is
+    the wire codec of their remote-miss rows."""
     ids = select_cache_vertices(graph, book, policy, budget, seed=seed)
     return [
         RowStore.create(book, ids, rows=np.asarray(h, dtype=np.float32),
-                        policy=policy, budget=budget)
+                        policy=policy, budget=budget, codec=codec)
         for h in embeddings
     ]

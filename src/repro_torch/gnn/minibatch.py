@@ -19,13 +19,19 @@ over the stacked [k, ...] batch with a `psum` of each worker's (loss sum,
 count). Here `minibatch_loss` runs `mfg_forward` once per worker over its
 slice of the stacked tensors, sums the k pairs in worker order and divides
 once; one autograd pass and one Adam update follow (`optim.adam_step`).
+Under a lossy wire codec (core/wire.py) the step is the reference's
+error-feedback one: worker w's forward runs on its own parameter copy,
+its gradient is k * dL/dW_w (`models.per_partition_grads`), and the k
+gradients are reduced through `codec_grad_reduce` with a [k, ...] EF
+carry; the feature store ships its miss rows through the codec (fixed at
+build: features are layer-0 data).
 
 The step is repeatable bit for bit on the card (`repeatable_step`):
 PyTorch's deterministic algorithms are switched on for it alone, which
 sends the scatter backend's `index_add_` and the other accumulating
-scatters to their sort-based, fixed-order implementations. Only the fp32
-(lossless) path is ported: the wire codecs, the fault injector and epoch
-schedules are refused where they would be set.
+scatters to their sort-based, fixed-order implementations, under every
+codec. The fault injector is not yet ported (ROADMAP queue 1, item 6) and
+is refused where it would be set.
 """
 
 from __future__ import annotations
@@ -44,13 +50,20 @@ import torch.utils.deterministic
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition_book import VertexPartitionBook, build_vertex_book
+from repro_torch.core.wire import as_codec, codec_grad_reduce, ef_init
 from repro_torch.gnn import models
 from repro_torch.gnn.feature_store import FeatureStore
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.pipeline import BatchPreparer, PipelineEngine
 from repro_torch.gnn.sampling import PAPER_FANOUTS, SamplePlan
 from repro_torch.kernels import ops
-from repro_torch.optim import AdamState, adam_init, adam_step
+from repro_torch.optim import (
+    AdamState,
+    adam_init,
+    adam_step,
+    adam_update,
+    tree_map,
+)
 
 # cuBLAS's workspace setting that deterministic mode asks for (PyTorch
 # checks the variable at each matmul). It is PyTorch's default workspace on
@@ -138,6 +151,11 @@ def mfg_forward(spec: GNNSpec, layer_params: Sequence, batch,
     return h
 
 
+def _worker_params(params, w: int):
+    """Worker w's copy of per-worker parameters ([k, ...] leaves)."""
+    return tree_map(lambda t: t[w], params)
+
+
 def _worker_batch(stacked, w: int) -> dict:
     """Worker w's slice of a stacked [k, ...] batch tree (views)."""
     return {
@@ -163,14 +181,18 @@ def _loss_terms(spec: GNNSpec, params, batch,
 
 
 def minibatch_loss(spec: GNNSpec, params, stacked,
-                   layer_sizes: Sequence[int]) -> torch.Tensor:
+                   layer_sizes: Sequence[int], *,
+                   per_worker: bool = False) -> torch.Tensor:
     """The loss over a stacked [k, ...] batch: the workers' (sum, count)
     pairs summed in worker order, divided once. Every worker of the
     reference's vmap returns this same value (its psum) and the step takes
-    their mean, so this scalar is the reference's step loss."""
+    their mean, so this scalar is the reference's step loss. With
+    `per_worker`, every parameter leaf is [k, ...] and worker w's forward
+    runs on copy w."""
     total = None
     for w in range(stacked["x"].shape[0]):
-        terms = _loss_terms(spec, params, _worker_batch(stacked, w),
+        wp = _worker_params(params, w) if per_worker else params
+        terms = _loss_terms(spec, wp, _worker_batch(stacked, w),
                             layer_sizes)
         total = terms if total is None else total + terms
     return total[0] / torch.clamp(total[1], min=1.0)
@@ -224,8 +246,8 @@ class StepMetrics:
     # feature-store phase accounting: remote = cache_hits + remote_misses
     cache_hits: np.ndarray = None      # [k]
     remote_misses: np.ndarray = None   # [k]
-    miss_bytes: np.ndarray = None      # [k] f32 miss bytes
-    wire_bytes: np.ndarray = None      # [k] == miss_bytes (fp32 wire)
+    miss_bytes: np.ndarray = None      # [k] logical (f32) miss bytes
+    wire_bytes: np.ndarray = None      # [k] codec-encoded miss bytes
     # pipeline phase accounting (gnn/pipeline.py): host wall per phase, the
     # consumer-side step wall, and how much host time the prefetch hid
     fetch_time_host: float = 0.0       # feature gather + stack
@@ -284,6 +306,8 @@ class MiniBatchTrainer:
     prefetch_depth: int = 2
     start_step: int = 0                # first global step to draw
     repeatable: bool = True            # the step under `repeatable_step`
+    codec: Any = None                  # wire codec name/instance (None=fp32)
+    ef_state: Any = None               # error-feedback carry (lossy codecs)
     _load_ema: Optional[np.ndarray] = None
     _seed_share: Optional[np.ndarray] = None
 
@@ -313,12 +337,9 @@ class MiniBatchTrainer:
         injector=None,
         repeatable: bool = True,
     ) -> "MiniBatchTrainer":
-        if codec not in (None, "fp32"):
-            raise NotImplementedError(
-                f"wire codec {codec!r} is not yet ported; this port has "
-                "fp32 only")
         if injector is not None:
-            raise NotImplementedError("fault injection is not yet ported")
+            raise NotImplementedError(
+                "fault injection is not yet ported (ROADMAP queue 1, item 6)")
         book = build_vertex_book(graph, vertex_assignment, k)
         fanouts = tuple(fanouts or PAPER_FANOUTS[spec.num_layers])
         train_ids = np.where(train_mask)[0]
@@ -329,7 +350,7 @@ class MiniBatchTrainer:
         features = features.astype(np.float32)
         store = FeatureStore.build(
             graph, book, policy=cache_policy, budget=cache_budget,
-            features=features, seed=seed,
+            features=features, seed=seed, codec=codec,
         )
         return cls(
             graph=graph, book=book, spec=spec,
@@ -339,7 +360,7 @@ class MiniBatchTrainer:
             params=params, opt_state=adam_init(params), seed=seed,
             lr=lr, rebalance=rebalance, store=store,
             overlap=overlap, prefetch_depth=prefetch_depth,
-            start_step=start_step, repeatable=repeatable,
+            start_step=start_step, repeatable=repeatable, codec=codec,
             _load_ema=np.ones(k), _seed_share=np.full(k, 1.0 / k),
         )
 
@@ -375,16 +396,44 @@ class MiniBatchTrainer:
         return [p.n_dst for p in self.plan.layers]
 
     # ------------------------------------------------------------------ step
+    def _init_ef(self):
+        """Per-worker zero EF residuals, stacked [k, ...]."""
+        k = self.book.k
+        return ef_init(tree_map(lambda p: p.expand((k,) + p.shape),
+                                self.params))
+
+    def set_epoch(self, epoch: int) -> None:
+        """Advance an epoch-scheduled codec (VariableRatioCodec) on the
+        gradient reduce. The feature store's codec is fixed at build time:
+        features are layer-0 data, so the schedule's layer-0 tier applies
+        to them throughout."""
+        advance = getattr(as_codec(self.codec), "at_epoch", None)
+        if advance is not None:
+            self.codec = advance(epoch)
+
     def device_step(self, stacked) -> float:
         """One Adam step on a stacked device batch; returns the loss before
         the update. Reading it waits for the whole step, update included
         (one stream)."""
         sizes = self._layer_sizes
+        codec = as_codec(self.codec)
         with repeatable_step(self.repeatable):
-            loss, self.params, self.opt_state = adam_step(
+            if codec.lossless:
+                loss, self.params, self.opt_state = adam_step(
+                    lambda params: minibatch_loss(self.spec, params, stacked,
+                                                  sizes),
+                    self.params, self.opt_state, lr=self.lr)
+                return float(loss)
+            if self.ef_state is None:
+                self.ef_state = self._init_ef()
+            loss, grads = models.per_partition_grads(
                 lambda params: minibatch_loss(self.spec, params, stacked,
-                                              sizes),
-                self.params, self.opt_state, lr=self.lr)
+                                              sizes, per_worker=True),
+                self.params, k=self.book.k, stacked=True)
+            mean, self.ef_state = codec_grad_reduce(
+                codec, grads, self.ef_state, stacked=True)
+            self.params, self.opt_state = adam_update(
+                mean, self.opt_state, self.params, lr=self.lr)
             return float(loss)
 
     def train_step(self) -> StepMetrics:

@@ -19,7 +19,10 @@ master-gated masked cross-entropy over the stacked partitions.
 
 Parameters are a dict {"layers": [dict of tensors]}; `init_params` draws the
 same NumPy stream as the reference, so both packages start from
-bit-identical weights.
+bit-identical weights. The layers also take per-partition parameter copies
+(every leaf [k, ...], partition j's copy used on partition j's rows): the
+lossy-codec step differentiates each partition's copy in one backward
+pass, as the reference's `vmap` gives each lane its own gradient.
 """
 
 from __future__ import annotations
@@ -120,6 +123,27 @@ def init_params(spec: GNNSpec, seed: int = 0, *, device) -> Params:
     return params_from_numpy(init_params_numpy(spec, seed), device)
 
 
+def per_partition_grads(loss_of, params: Params, *, k: int, stacked: bool):
+    """(loss, grads) for the lossy-codec step. `loss_of(live)` runs on fresh
+    leaves: with `stacked`, k copies of every leaf ([k, ...]; partition j's
+    forward uses copy j), and each copy's gradient is k * dL/dW_j. That is
+    the reference's per-lane gradient under `vmap`: every lane's loss is
+    the global loss L (a psum), so lane j's gradient is the gradient of the
+    k lanes' summed losses with respect to lane j's copy. Unstacked
+    (k == 1): dL/dW. The loss is returned detached."""
+    live = {"layers": [
+        {name: (t.detach().expand((k,) + t.shape).clone() if stacked
+                else t.detach()).requires_grad_()
+         for name, t in layer.items()}
+        for layer in params["layers"]]}
+    loss = loss_of(live)
+    flat = [t for layer in live["layers"] for t in layer.values()]
+    it = iter(torch.autograd.grad(loss, flat))
+    grads = {"layers": [{name: next(it) * k if stacked else next(it)
+                         for name in layer} for layer in live["layers"]]}
+    return loss.detach(), grads
+
+
 # ---------------------------------------------------------------------------
 # Layers (stacked partitions; `sync` completes aggregates globally)
 # ---------------------------------------------------------------------------
@@ -129,11 +153,23 @@ def _masked_src(src, dst, mask):
     return src * mask[:, None]
 
 
+def _rows(b: torch.Tensor) -> torch.Tensor:
+    """A bias, shared [d] or per partition [k, d], against [k, n, d] rows."""
+    return b if b.dim() == 1 else b[:, None]
+
+
+def _head_scores(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """[k, n, H] attention scores of z [k, n, H, dh] against a shared
+    [H, dh] or per-partition [k, H, dh] vector."""
+    return torch.einsum("knhd,hd->knh" if a.dim() == 2 else "knhd,khd->knh",
+                        z, a)
+
+
 def sage_layer(p, x, blk, sync, *, final: bool,
                backend: str = "scatter") -> torch.Tensor:
     agg = sync.edge_aggregate(blk, x, _masked_src, backend=backend)
     mean = agg / torch.clamp(blk.degree, min=1.0)[..., None]
-    h = x @ p["w_self"] + mean @ p["w_neigh"] + p["b"]
+    h = x @ p["w_self"] + mean @ p["w_neigh"] + _rows(p["b"])
     return h if final else F.relu(h)
 
 
@@ -144,17 +180,17 @@ def gcn_layer(p, x, blk, sync, *, final: bool,
                               backend=backend)
     # self-loop term after completion (replica-consistent, ungated)
     agg = agg + x * (dnorm * dnorm)[..., None]
-    h = (agg * dnorm[..., None]) @ p["w"] + p["b"]
+    h = (agg * dnorm[..., None]) @ p["w"] + _rows(p["b"])
     return h if final else F.relu(h)
 
 
 def gat_layer(p, x, blk, sync, *, final: bool,
               backend: str = "scatter") -> torch.Tensor:
     k, n = x.shape[:2]
-    h_heads, dh = p["a_src"].shape
+    h_heads, dh = p["a_src"].shape[-2:]
     z = (x @ p["w"]).reshape(k, n, h_heads, dh)
-    s_src = torch.einsum("knhd,hd->knh", z, p["a_src"])  # [k, n, H]
-    s_dst = torch.einsum("knhd,hd->knh", z, p["a_dst"])
+    s_src = _head_scores(z, p["a_src"])  # [k, n, H]
+    s_dst = _head_scores(z, p["a_dst"])
     s_dst_rows = s_dst.reshape(k * n, h_heads)
 
     def score(src_s, dst):
@@ -196,7 +232,7 @@ def gat_layer(p, x, blk, sync, *, final: bool,
     num = sync.edge_aggregate(blk, payload, weighted_msg, backend=backend)
     num = num.reshape(k, n, h_heads, dh) + w_self[..., None] * z
 
-    out = (num / den[..., None]).reshape(k, n, h_heads * dh) + p["b"]
+    out = (num / den[..., None]).reshape(k, n, h_heads * dh) + _rows(p["b"])
     out = out @ p["w_out"]
     return out if final else F.elu(out)
 
@@ -214,6 +250,9 @@ def forward(spec: GNNSpec, params: Params, x, blk, sync) -> torch.Tensor:
     # place (the reference's h.at[-1].set(0.0)): relu / elu save their
     # output for the backward, so an in-place write would break it
     dummy = (torch.arange(n, device=x.device) == n - 1)[:, None]
+    # aggregate ordinals restart each forward (VariableRatioCodec ramps on
+    # them; a no-op for the fixed-ratio codecs)
+    sync.reset_layer_counter()
     h = x
     n_layers = len(params["layers"])
     for li, p in enumerate(params["layers"]):

@@ -1,9 +1,9 @@
 """Synchronisation strategies for distributed full-graph GNN layers.
 
-Twin of repro/gnn/sync.py (Local, Dense, Halo and Ring; fp32 wire). The
-reference runs one partition per `vmap` lane; here the k partitions are a
-leading dimension of every tensor, so a collective is a tensor op over that
-dimension:
+Twin of repro/gnn/sync.py (Local, Dense, Halo and Ring, each with its wire
+codec). The reference runs one partition per `vmap` lane; here the k
+partitions are a leading dimension of every tensor, so a collective is a
+tensor op over that dimension:
 
     edge_aggregate(blk, payload [k, n, d], msg_fn, *, reduce, backend)
         -> [k, n, d], complete over the symmetrised adjacency
@@ -40,6 +40,23 @@ serves them all.
               and aggregates its pre-rotated chunk (p, s); the k stages
               run in order, summed (or maxed) in stage order.
 
+Every strategy carries a `codec` (core/wire.py; None is fp32, the
+identity, so the default path is the codec-free code). Under a lossy codec
+each partition's payload is encoded with its own scale and decoded before
+it is used, where the reference encodes before its collective and decodes
+after: Dense encodes a partition's [V+1, d] slice before the sum over the
+partitions (its max is not encoded); Halo encodes the [k(sender), k, B, d]
+buffer, one scale a sender, and fills the max's masked slots with 0.0, not
+-1e30 (the receiver re-masks them); Ring encodes each partition's [n, d]
+payload once an aggregate, and every stage, stage 0 included, reads the
+decoded view, decoded anew a stage as in the reference (the same bits,
+and under bf16 the reference's backward: each stage's cotangent rounded to
+bf16 on its own); Local moves nothing. `models.forward` resets the
+aggregate ordinal (`reset_layer_counter`), and each `edge_aggregate` takes
+the next one: the depth `VariableRatioCodec` ramps on. The accounting
+(`sync_wire_bytes_per_round`, `collective_budget`) prices each partition's
+encoded buffer by `codec.wire_bytes`, as the reference does.
+
 No completion's result depends on the order of float atomics: every
 `index_add_` / `scatter_reduce_` a completion issues adds at most one real
 value to a row (pads write the dummy rows with the reduce's identity), and
@@ -53,12 +70,13 @@ the oracle and adds in atomic order.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.partition_book import BlockRowBook, EdgePartitionBook
+from repro_torch.core.wire import Codec, as_codec
 from repro_torch.kernels import ops
 from repro_torch.kernels.tiling import tiled_shape
 
@@ -147,13 +165,42 @@ def build_blocks(
     )
 
 
-class _PartialAggSync:
+class _CodecSync:
+    """Wire-codec plumbing shared by every strategy. Strategies are frozen
+    dataclasses, so the aggregate ordinal lives behind `object.__setattr__`
+    (the reference's `_CodecSync`): `reset_layer_counter` at the top of a
+    forward, `_take_layer` at each `edge_aggregate`."""
+
+    def _codec(self) -> Codec:
+        return as_codec(self.codec)
+
+    def reset_layer_counter(self) -> None:
+        object.__setattr__(self, "_agg_layer", 0)
+
+    def _take_layer(self) -> int:
+        layer = int(getattr(self, "_agg_layer", 0))
+        object.__setattr__(self, "_agg_layer", layer + 1)
+        object.__setattr__(self, "_cur_layer", layer)
+        return layer
+
+    def _wire(self, buf: torch.Tensor) -> torch.Tensor:
+        """`buf` [k, ...] as the receivers see it: each partition's slice
+        encoded with its own scale at this aggregate's ordinal, then
+        decoded. The fp32 codec returns `buf` itself."""
+        codec = self._codec()
+        payload, meta = codec.encode(
+            buf, layer=getattr(self, "_cur_layer", 0), stacked=True)
+        return codec.decode(payload, meta)
+
+
+class _PartialAggSync(_CodecSync):
     """Shared `edge_aggregate` for the partial-aggregate family: reduce the
     messages over every partition's symmetrised local edge list, then
     complete the partials with the strategy's reduce + broadcast pair."""
 
     def edge_aggregate(self, blk: Block, payload: torch.Tensor, msg_fn, *,
                        reduce: str = "sum", backend: str = "scatter"):
+        self._take_layer()
         k, n, d = payload.shape
         messages = msg_fn(payload.reshape(k * n, d)[blk.sym_src],
                           blk.sym_dst, blk.sym_mask)
@@ -170,7 +217,10 @@ class _PartialAggSync:
 
 @dataclasses.dataclass(frozen=True)
 class LocalSync(_PartialAggSync):
-    """k=1: partial aggregates are already complete."""
+    """k=1: partial aggregates are already complete (codec: nothing
+    moves)."""
+
+    codec: Optional[Union[str, Codec]] = None
 
     def reduce_sum(self, h):
         return h
@@ -199,9 +249,12 @@ class DenseSync(_PartialAggSync):
     buffer, in which it holds a vertex at most once, so the placement adds
     at most one real value to a row; the sum over the partitions is a
     reduction over the stacked dimension, not adds into one [V+1, d]
-    buffer whose replicas would land in atomic order."""
+    buffer whose replicas would land in atomic order. A lossy codec
+    encodes each partition's slice before the sum (the reduce sums the
+    decoded views, as the reference's psum of its dequantised buffer)."""
 
     blk: Block
+    codec: Optional[Union[str, Codec]] = None
 
     def _stacked(self, h, fill):
         """[k*(V+1), d] filled with `fill` and the row indices of each
@@ -217,7 +270,8 @@ class DenseSync(_PartialAggSync):
         k, n, d = h.shape
         buf, rows, g_rows = self._stacked(h, 0.0)
         part = (h * blk.vmask[..., None]).reshape(k * n, d)
-        g = buf.index_add(0, rows, part).reshape(k, g_rows, d).sum(0)
+        g = self._wire(buf.index_add(0, rows, part).reshape(k, g_rows, d))
+        g = g.sum(0)
         return g[blk.vglobal] * blk.vmask[..., None]
 
     def reduce_max(self, h):
@@ -249,14 +303,16 @@ class HaloSync(_PartialAggSync):
     with the reduce's identity, so no row takes two real values in one
     call: the completion does not depend on the order of atomic adds,
     although a master row receives from several mirrors.
-    broadcast: the exact reverse routing pushes completed rows back."""
+    broadcast: the exact reverse routing pushes completed rows back.
+    The codec brackets `_exchange`: one scale a sender over its [k, B, d]
+    buffer, and received bucket i decoded with sender i's scale."""
 
     blk: Block
+    codec: Optional[Union[str, Codec]] = None
 
-    @staticmethod
-    def _exchange(buf: torch.Tensor) -> torch.Tensor:
+    def _exchange(self, buf: torch.Tensor) -> torch.Tensor:
         # buf [k(sender), k(bucket), B, d]; result[j, i] = what i sent to j
-        return buf.transpose(0, 1)
+        return self._wire(buf).transpose(0, 1)
 
     def _gather(self, h, idx):
         k, n, d = h.shape
@@ -280,8 +336,11 @@ class HaloSync(_PartialAggSync):
 
     def reduce_max(self, h):
         blk = self.blk
+        # a lossy codec sends 0.0 in masked slots: an extreme fill would
+        # erase a per-tensor int8 scale (the receiver re-masks either way)
+        fill = -1e30 if self._codec().lossless else 0.0
         send = torch.where(blk.send_mask[..., None],
-                           self._gather(h, blk.send_idx), -1e30)
+                           self._gather(h, blk.send_idx), fill)
         recv = self._exchange(send)
         recv = torch.where(blk.recv_mask[..., None], recv, -1e30)
         flat, pairs = self._per_sender(h, recv)
@@ -385,21 +444,32 @@ def build_ring_blocks(
 
 
 @dataclasses.dataclass(frozen=True)
-class RingSync:
+class RingSync(_CodecSync):
     """1.5D ring-pipelined aggregation (CAGNET-style block rotation).
 
     Stage s aggregates every partition's chunk (p, s) against the payload
     block it holds after s hops of the reference's `ppermute` ring, one
     `ops.aggregate` over the k stacked chunks; the stages run in order
     0..k-1 and accumulate by `+` (or `maximum`), out of place. Every row
-    is owned exactly once, so there is no reduce/broadcast pair."""
+    is owned exactly once, so there is no reduce/broadcast pair. The
+    codec encodes each partition's block once an aggregate; what rotates
+    is the encoded block, and each stage decodes it anew, as the
+    reference's stages do: the values are the same bits at every stage,
+    but under bf16 each stage's cotangent is rounded to bf16 on its own
+    before the stages' cotangents are summed (in bf16), as in the
+    reference's backward."""
+
+    codec: Optional[Union[str, Codec]] = None
 
     def edge_aggregate(self, blk: RingBlock, payload: torch.Tensor, msg_fn,
                        *, reduce: str = "sum", backend: str = "scatter"):
+        layer = self._take_layer()
+        codec = self._codec()
         k, n, d = payload.shape
-        flat = payload.reshape(k * n, d)
+        enc, meta = codec.encode(payload, layer=layer, stacked=True)
         acc = None
         for s in range(k):
+            flat = codec.decode(enc, meta).reshape(k * n, d)
             messages = msg_fn(flat[blk.ring_src[s]], blk.ring_dst[s],
                               blk.ring_mask[s])
             part = ops.aggregate(
@@ -425,22 +495,23 @@ def _unknown(mode: str) -> ValueError:
                       f"{', '.join(SYNC_MODES)}")
 
 
-def make_sync(mode: str, blk):
+def make_sync(mode: str, blk, codec=None):
     """Instantiate a SyncStrategy over the stacked `blk`: a `Block` for
     local/dense/halo, a `RingBlock` for ring (1.5D layouts have no halo
-    tables)."""
+    tables). `codec` is a name or a `core.wire` Codec (None -> fp32)."""
+    codec = as_codec(codec)
     if mode == "local":
-        return LocalSync()
+        return LocalSync(codec=codec)
     if mode == "dense":
-        return DenseSync(blk=blk)
+        return DenseSync(blk=blk, codec=codec)
     if mode == "halo":
-        return HaloSync(blk=blk)
+        return HaloSync(blk=blk, codec=codec)
     if mode == "ring":
         if not isinstance(blk, RingBlock):
             raise TypeError(
                 "sync mode 'ring' needs a RingBlock (build_ring_blocks over "
                 f"a BlockRowBook); got {type(blk).__name__}")
-        return RingSync()
+        return RingSync(codec=codec)
     raise _unknown(mode)
 
 
@@ -468,3 +539,77 @@ def sync_bytes_per_round(book, d: int, mode: str) -> int:
 def ring_bytes_per_round(book: BlockRowBook, d: int) -> int:
     """Cluster-wide `ppermute` bytes of one ring aggregate (k·(k−1)·(Vb+1)·d·4)."""
     return sync_bytes_per_round(book, d, "ring")
+
+
+def collective_budget(book, d: int, mode: str, codec=None,
+                      layer: int = 0) -> dict:
+    """The collectives ONE complete aggregate issues across k processes,
+    per kind: {kind: {"count": (lo, hi), "cluster_bytes": int}}, as the
+    reference predicts them for its compiled program (repro/gnn/sync.py
+    `collective_budget`). The stacked partitions issue none; the
+    multi-process mode (ROADMAP queue 1, item 5) is what these describe.
+
+      halo   2 all_to_alls of each device's [k, B, d] buffer in the codec's
+             wire dtype; codecs with a scale gather the k sender scales:
+             +2 all-gathers of [k] float32
+      ring   k-1 permute stages (payload and scale may be separate
+             permutes: [k-1, 2(k-1)] ops), bytes ==
+             `sync_wire_bytes_per_round`
+      dense  1 all-reduce of the [V+1, d] buffer, float32 for every codec
+             (the reduce sums the decoded views)
+    """
+    codec = as_codec(codec)
+    elem = codec.wire_dtype(layer=layer).itemsize
+    k = book.k
+    if mode == "halo":
+        b = book.bucket
+        budget = {"all-to-all": {"count": (2, 2),
+                                 "cluster_bytes": 2 * k * k * b * d * elem}}
+        meta = codec.wire_bytes((k, b, d), layer=layer) - k * b * d * elem
+        if meta > 0:
+            budget["all-gather"] = {"count": (2, 2),
+                                    "cluster_bytes": 2 * k * k * meta}
+        return budget
+    if mode == "ring":
+        if not isinstance(book, BlockRowBook):
+            raise TypeError("ring budget needs a BlockRowBook")
+        rows = book.v_block + 1
+        has_meta = codec.wire_bytes((rows, d), layer=layer) > rows * d * elem
+        return {"collective-permute": {
+            "count": (k - 1, 2 * (k - 1)) if has_meta else (k - 1, k - 1),
+            "cluster_bytes": sync_wire_bytes_per_round(
+                book, d, "ring", codec, layer=layer),
+        }}
+    if mode == "dense":
+        return {"all-reduce": {
+            "count": (1, 1),
+            "cluster_bytes": k * (book.num_vertices + 1) * d * 4,
+        }}
+    raise ValueError(f"no collective budget for sync mode {mode!r}")
+
+
+def sync_wire_bytes_per_round(book, d: int, mode: str, codec=None,
+                              layer: int = 0) -> int:
+    """Codec-aware twin of `sync_bytes_per_round`: the bytes that cross the
+    network for ONE complete aggregate, all devices, with each device's
+    buffer priced by `codec.wire_bytes` (payload + meta) at aggregate
+    ordinal `layer`; the fp32 codec gives `sync_bytes_per_round`."""
+    codec = as_codec(codec)
+
+    def wb(shape):
+        return codec.wire_bytes(shape, layer=layer)
+
+    if mode == "halo":
+        # 2 exchanges per round, each device encoding one [k, B, d] buffer
+        return 2 * book.k * wb((book.k, book.bucket, d))
+    if mode == "dense":
+        # ~2x the encoded [V+1, d] buffer a device (ring all-reduce)
+        return 2 * book.k * wb((book.num_vertices + 1, d))
+    if mode == "ring":
+        if not isinstance(book, BlockRowBook):
+            raise TypeError("ring volume needs a BlockRowBook")
+        # k-1 stages a device, each shipping one encoded block
+        return book.k * (book.k - 1) * wb((book.v_block + 1, d))
+    if mode == "local":
+        return 0
+    raise _unknown(mode)

@@ -10,7 +10,11 @@ paper's cluster, beside the measured host compute per batch.
 Runs on the card unless `--device cpu` is given; with `--device cuda` and
 no GPU it raises. Features, request ids and arrivals are drawn from
 `np.random.default_rng(seed)` in the reference's order, so both CLIs serve
-the same requests.
+the same requests. `--codec` sets the wire codec (core/wire.py) of the
+embedding store: remote-miss rows are shipped encoded and decoded at the
+reader, and the modeled service time is priced from the encoded bytes.
+Traces and study rows (`--trace`, `--out-json`, ROADMAP queue 1, item 7)
+are not yet ported and are refused.
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --graph OR \
       --scale 0.05 --partitioner hep100 --k 4 --model sage --qps 100 --smoke
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 from typing import Optional
 
@@ -33,9 +38,11 @@ from repro_torch.core.graph import Graph, paper_graph
 from repro_torch.core.metrics import edge_partition_metrics, vertex_partition_metrics
 from repro_torch.core.partition_book import build_vertex_book
 from repro_torch.core.vertex_partition import VERTEX_PARTITIONERS, partition_vertices
+from repro_torch.core.wire import CODECS
 from repro_torch.gnn.feature_store import CACHE_POLICIES
 from repro_torch.gnn.inference import LayerwiseInference, edge_assignment_from_vertex
 from repro_torch.gnn.models import GNNSpec, init_params
+from repro_torch.launch.gnn_train import refuse_not_ported
 from repro_torch.serve.engine import ServingReport, build_serving, run_serving_sim
 
 
@@ -75,8 +82,11 @@ def parser() -> argparse.ArgumentParser:
                     help="micro-batch size cap")
     ap.add_argument("--max-wait", type=float, default=5e-4,
                     help="seconds a request may wait for its micro-batch")
-    ap.add_argument("--codec", default="fp32", choices=["fp32"],
-                    help="wire codec of the embedding store (fp32 only)")
+    ap.add_argument("--codec", default="fp32", choices=list(CODECS),
+                    help="wire codec (core/wire.py) of the embedding store: "
+                         "remote-miss rows are shipped encoded and decoded "
+                         "at the reader; service time is priced from the "
+                         "encoded bytes")
     ap.add_argument("--cache-policy", default="none",
                     choices=list(CACHE_POLICIES))
     ap.add_argument("--cache-budget", type=int, default=0,
@@ -100,6 +110,8 @@ class ServeRun:
 
 def run(argv: Optional[list] = None) -> ServeRun:
     """Parse `argv` (default: sys.argv[1:]) and serve; prints a report."""
+    argv = sys.argv[1:] if argv is None else argv
+    refuse_not_ported(argv, ("--trace", "--out-json"))
     args = parser().parse_args(argv)
     if args.smoke:
         args.requests = min(args.requests, 200)
@@ -157,7 +169,7 @@ def run(argv: Optional[list] = None) -> ServeRun:
         g, vbook, spec, params, embeddings, device=device,
         hops=args.hops, fanout=args.fanout, max_batch=args.batch,
         max_wait=args.max_wait, cache_policy=args.cache_policy,
-        cache_budget=args.cache_budget, seed=args.seed,
+        cache_budget=args.cache_budget, seed=args.seed, codec=args.codec,
     )
     if args.cache_budget:
         print(f"[serve] embedding cache: policy={args.cache_policy} "

@@ -1,6 +1,6 @@
 """The training CLI: partition a graph, train a GNN over the partitions.
 
-Twin of repro/launch/gnn_train.py, both regimes, fp32:
+Twin of repro/launch/gnn_train.py, both regimes, every wire codec:
 
   --regime fullbatch  DistGNN-style: edge partitioning, replica sync over
                       the stacked partitions (`--sync-mode` halo, dense,
@@ -20,8 +20,13 @@ device: each step's (mini batch: with its host phases) and the warm step.
 Runs on the card unless `--device cpu` is given; with `--device cuda` and
 no GPU it raises. Features, labels and the training mask are drawn from
 `np.random.default_rng(seed)` in the reference's order, so both CLIs train
-on the same data from the same weights. Checkpoints, traces, study rows and
-the lossy wire codecs are not yet ported.
+on the same data from the same weights. `--codec` sets the wire codec
+(core/wire.py) of every byte-moving path: the replica sync and the
+gradient reduce (full batch), the feature fetch and the gradient reduce
+(mini batch); `set_epoch` advances the variable codec's schedule each
+epoch. Checkpoints (`--ckpt-dir`, ROADMAP queue 1, item 6), traces and
+study rows (`--trace`, `--out-json`, item 7) are not yet ported and are
+refused.
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --partitioner hep100 --k 4 --model sage --epochs 5
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
 from typing import Optional, Union
 
@@ -59,6 +65,7 @@ from repro_torch.core.vertex_partition import (
     VERTEX_PARTITIONERS,
     partition_vertices,
 )
+from repro_torch.core.wire import CODECS
 from repro_torch.gnn.feature_store import CACHE_POLICIES
 from repro_torch.gnn.fullbatch import FullBatchTrainer
 from repro_torch.gnn.minibatch import MiniBatchTrainer, StepMetrics
@@ -76,6 +83,21 @@ TRAIN_ALLOC_CONF = "expandable_segments:True"
 # trainers' defaults (FullBatchTrainer.build 1e-2, MiniBatchTrainer.build
 # 1e-3; the reference CLI passes neither)
 DEFAULT_LR = {"fullbatch": 1e-2, "minibatch": 1e-3}
+# the reference CLI's flags this port refuses, with the ROADMAP queue 1
+# item that ports them; the parser does not know them either
+NOT_PORTED = {"--ckpt-dir": "checkpoints: ROADMAP queue 1, item 6",
+              "--trace": "tracing: ROADMAP queue 1, item 7",
+              "--out-json": "study rows: ROADMAP queue 1, item 7"}
+
+
+def refuse_not_ported(argv: list, flags) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for the first
+    of `flags` (keys of NOT_PORTED) that `argv` passes."""
+    for arg in argv:
+        flag = arg.split("=", 1)[0]
+        if flag in flags:
+            raise NotImplementedError(
+                f"{flag} ({NOT_PORTED[flag]}) is not yet ported")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -135,6 +157,13 @@ def parser() -> argparse.ArgumentParser:
                     help="per-worker remote-feature cache policy (mini batch)")
     ap.add_argument("--cache-budget", type=int, default=0,
                     help="cached remote vertices per worker (mini batch)")
+    ap.add_argument("--codec", default="fp32", choices=list(CODECS),
+                    help="wire codec (core/wire.py) of the byte-moving "
+                         "paths: replica sync + gradient reduce (full "
+                         "batch), feature fetch + gradient reduce (mini "
+                         "batch). fp32 is exact; int8 adds error feedback "
+                         "on gradients; variable ramps the ratio by layer "
+                         "and epoch")
     ap.add_argument("--lr", type=float, default=None,
                     help="Adam step size; default the reference trainer's "
                          "(full batch 1e-2, mini batch 1e-3). At widths 512 "
@@ -166,6 +195,8 @@ class TrainRun:
 
 def run(argv: Optional[list] = None) -> TrainRun:
     """Parse `argv` (default: sys.argv[1:]) and train; prints a report."""
+    argv = sys.argv[1:] if argv is None else argv
+    refuse_not_ported(argv, NOT_PORTED)
     args = parser().parse_args(argv)
     allowed = (EDGE_PARTITIONERS if args.regime == "fullbatch"
                else VERTEX_PARTITIONERS)
@@ -224,17 +255,19 @@ def _fullbatch(args, device, lr, g, spec, feats, labels,
           f"edge_bal={m.edge_balance:.2f} vertex_bal={m.vertex_balance:.2f}")
     tr = FullBatchTrainer.build(
         g, assignment, args.k, spec, feats, labels, train_mask,
-        sync_mode=args.sync_mode, seed=args.seed, lr=lr, device=device)
-    est = fullbatch_epoch(tr.book, spec)
+        sync_mode=args.sync_mode, seed=args.seed, lr=lr, codec=args.codec,
+        device=device)
+    est = fullbatch_epoch(tr.book, spec, codec=args.codec)
     print(f"[gnn] paper-cluster epoch estimate: {est.epoch_time*1e3:.1f} ms, "
           f"comm {est.comm_bytes.sum()/2**20:.1f} MiB "
-          f"(wire {est.wire_bytes.sum()/2**20:.1f} MiB, fp32), "
+          f"(wire {est.wire_bytes.sum()/2**20:.1f} MiB, {args.codec}), "
           f"mem max {est.memory.max()/2**20:.1f} MiB"
           + (" (OOM!)" if est.oom else ""))
 
     losses, seconds = [], []
     for epoch in range(args.epochs):
         t1 = time.perf_counter()
+        tr.set_epoch(epoch)
         loss = tr.train_step()  # returns a float: the step has ended
         seconds.append(time.perf_counter() - t1)
         losses.append(loss)
@@ -260,7 +293,7 @@ def _minibatch(args, device, lr, g, spec, feats, labels,
         device=device, global_batch=args.batch, seed=args.seed, lr=lr,
         rebalance=args.rebalance, cache_policy=args.cache_policy,
         cache_budget=args.cache_budget, overlap=args.overlap,
-        prefetch_depth=args.prefetch_depth)
+        prefetch_depth=args.prefetch_depth, codec=args.codec)
     if args.cache_budget:
         print(f"[gnn] feature cache: policy={args.cache_policy} "
               f"budget={args.cache_budget}/worker "
@@ -270,6 +303,7 @@ def _minibatch(args, device, lr, g, spec, feats, labels,
     try:
         for epoch in range(args.epochs):
             t1 = time.perf_counter()
+            tr.set_epoch(epoch)
             epoch_sms = []
             for step in range(steps_per_epoch):
                 sm = tr.train_step()
@@ -285,7 +319,7 @@ def _minibatch(args, device, lr, g, spec, feats, labels,
             est = minibatch_step(
                 sm.input_vertices, sm.remote_vertices, sm.edges,
                 tr.book.sizes, spec, remote_miss_vertices=sm.remote_misses,
-                cached_vertices=tr.store.cache_sizes)
+                cached_vertices=tr.store.cache_sizes, codec=args.codec)
             overlap_note = ""
             if args.overlap:
                 eff = np.mean([s.overlap_efficiency for s in epoch_sms])
@@ -297,6 +331,9 @@ def _minibatch(args, device, lr, g, spec, feats, labels,
                   f"remote/step "
                   f"{np.mean([s.remote_vertices.sum() for s in epoch_sms]):.0f} "
                   f"hit_rate {np.mean([s.hit_rate for s in epoch_sms]):.2f} "
+                  f"wire/step "
+                  f"{np.mean([s.wire_bytes.sum() for s in epoch_sms])/2**20:.2f}"
+                  f" MiB ({args.codec}) "
                   f"{overlap_note}"
                   f"cluster step est {est.step_time*1e3:.1f} ms (modeled) "
                   f"| warm step {np.median(warm):.4f}s on {device} "

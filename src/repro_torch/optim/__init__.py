@@ -6,6 +6,8 @@ from repro_torch.optim.adam import (
     adam_step,
     adam_update,
     leaves,
+    tree_map,
 )
 
-__all__ = ["AdamState", "adam_init", "adam_step", "adam_update", "leaves"]
+__all__ = ["AdamState", "adam_init", "adam_step", "adam_update", "leaves",
+           "tree_map"]

@@ -21,7 +21,7 @@ class AdamState(NamedTuple):
     nu: Params
 
 
-def _map(fn, *trees) -> Params:
+def tree_map(fn, *trees) -> Params:
     """Apply `fn` leaf by leaf over `{"layers": [{name: tensor}]}` trees of
     the same structure."""
     return {"layers": [
@@ -35,10 +35,10 @@ def leaves(params: Params) -> list:
 
 
 def adam_init(params: Params) -> AdamState:
-    zeros = _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
     device = next(iter(params["layers"][0].values())).device
     step = torch.zeros((), dtype=torch.int32, device=device)
-    return AdamState(step=step, mu=zeros, nu=_map(torch.zeros_like, zeros))
+    return AdamState(step=step, mu=zeros, nu=tree_map(torch.zeros_like, zeros))
 
 
 @torch.no_grad()
@@ -68,8 +68,8 @@ def adam_update(
         delta = (m / c1) / (torch.sqrt(v / c2) + eps)
         return p - lr * delta.to(p.dtype), m, v
 
-    out = _map(upd, grads, state.mu, state.nu, params)
-    pick = lambda i: _map(lambda o: o[i], out)  # noqa: E731
+    out = tree_map(upd, grads, state.mu, state.nu, params)
+    pick = lambda i: tree_map(lambda o: o[i], out)  # noqa: E731
     return pick(0), AdamState(step=step, mu=pick(1), nu=pick(2))
 
 

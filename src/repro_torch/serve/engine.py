@@ -118,11 +118,13 @@ class ServeEngine:
     def estimate(self, batch: SampledBatch,
                  stats: FetchStats,
                  cluster: ClusterSpec = PAPER_CLUSTER):
-        """Cluster-model service time of one answered micro-batch."""
+        """Cluster-model service time of one answered micro-batch, priced
+        with the embedding store's wire codec."""
         return cost_model.serve_request(
             stats.num_input, stats.num_remote, stats.num_remote_miss,
             batch.num_edges, self.spec,
             embed_dim=self.store.row_dim, hops=self.hops, cluster=cluster,
+            codec=self.store.codec,
         )
 
 
@@ -286,12 +288,14 @@ def build_serving(
     cache_policy: str = "none",
     cache_budget: int = 0,
     seed: int = 0,
+    codec=None,
 ) -> tuple[list, list, RowStore]:
     """Wire per-worker (engines, batchers) over one embedding store.
 
     `embeddings` is the `LayerwiseInference.run()` output (layer outputs,
     input side first); serving with `hops` recompute layers reads the
-    layer-(L-1-hops) store."""
+    layer-(L-1-hops) store; `codec` is the wire codec of its remote-miss
+    rows."""
     L = spec.num_layers
     if hops == L:
         raise ValueError(
@@ -300,7 +304,7 @@ def build_serving(
     source = embeddings[L - 1 - hops]
     store = build_embedding_stores(
         graph, vbook, [source], policy=cache_policy, budget=cache_budget,
-        seed=seed,
+        seed=seed, codec=codec,
     )[0]
     fanouts = (fanout,) * hops
     tiled = spec.agg_backend != "scatter"
