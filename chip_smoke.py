@@ -142,17 +142,47 @@ ends the script with a traceback and a non-zero exit:
                ring, bf16 on dense and ring). Prints warm step seconds,
                peak GiB and wire MiB beside each fp32 twin, and the phase's
                seconds.
+ 10. robust  — checkpoints, faults and recovery (ckpt/, fault/) at phases
+               7-8's widths, each held to an earlier phase's run of this
+               call: full batch GAT tiled halo through `gnn_train
+               --ckpt-dir D --inject-fault crash@step:2` (5 epochs) must
+               raise `WorkerCrash` after epochs 0-1, then `--resume` trains
+               epochs 2-4 equal to phase 7's losses and final parameters
+               bit for bit; SAGE halo int8 the same way, its resume with
+               `--inject-fault corrupt-ckpt` (restore falls back to epoch
+               0), equal to phase 9's int8 losses, parameters and EF carry
+               bit for bit; mini batch GAT tiled overlapped through
+               `gnn_train --regime minibatch --overlap` crashed at step 3
+               and resumed, steps 3-6 equal to phase 8's serial CLI losses
+               bit for bit; SAGE tiled serial through the trainer API under
+               a sample-error, a fetch-error and a straggler, equal to
+               phase 8's losses bit for bit with injected == handled == 3;
+               SAGE tiled halo under `run_elastic_fullbatch` losing worker 2
+               at epoch 1 and regaining it at epoch 3 (k 4, 3, 3, 4, 4),
+               within LOSS_TOL of phase 7's trajectory a step; `gnn_serve`
+               GAT tiled with `worker-death@t:1.0,worker:1` and
+               `--detect-delay 0.005`, every one of the 200 requests
+               answered, some rerouted, injected == handled == 1. The
+               launch counters are set to 0 before and read after each run
+               and held to `expected_launches` /
+               `expected_minibatch_launches` (the elastic run at its k=4
+               and k=3 rows, timed in phase 5 from `elastic_shapes`).
+               Prints checkpoint bytes, save and restore seconds, each
+               step's wall beside phase 8's under the faults, the
+               rescales' re-partition seconds, first step after and
+               modeled `recovery_time`, the elastic run's peak and the
+               serving transition window's modeled p50 / p99.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phases 4, 7, 8 and 9 made at
-that shape (phases 7-9 fail if they launched the kernel at a shape phase 5
-did not time)
+entry per shape of phase 5 with the launches phases 4 and 7-10 made at
+that shape (phases 7-10 fail if they launched the kernel at a shape phase
+5 did not time)
 and one per (attention kernel, shape, dtype) of phase 6, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
-training results (phase 8's under "minibatch", phase 9's under "codecs")
-to chiprun_out/chip_smoke_train.json.
+training results (phase 8's under "minibatch", phase 9's under "codecs",
+phase 10's under "robust") to chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
 each over a GAT tiled full-batch training step at the training phase's
@@ -173,6 +203,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -264,6 +295,18 @@ MB_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "metis",
             "--batch", "1024", "--epochs", "1", "--device", "cuda"]
 MB_STEPS = 5
 MB_COST_STEPS = 3
+# the robustness phase (10): the elastic run's smaller cluster (k 4 -> 3 ->
+# 4), the faults of its runs, and where its checkpoints go (git-ignored)
+ELASTIC_K = 3
+ELASTIC_PLAN = ["worker-loss@epoch:1,worker:2", "worker-join@epoch:3"]
+RETRY_PLAN = ["sample-error@step:1,worker:1", "fetch-error@step:2,worker:0",
+              "straggler@step:3,worker:2,delay:0.05"]
+DEATH_PLAN = ["--inject-fault", "worker-death@t:1.0,worker:1",
+              "--detect-delay", "0.005"]
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+# the final state of the CLI runs phase 10 resumes against (phases 7 and 9
+# keep it): run -> (parameters, EF carry), tensors on the card
+ORACLES: dict = {}
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -925,6 +968,8 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
         base = run.trainer  # its book and blocks serve the runs below
         record((sync, "gat", "tiled"), base, run.losses, run.step_seconds,
                launches, run.peak_memory, time.perf_counter() - t0)
+        ORACLES[f"{sync} gat tiled"] = (_param_tensors(base),
+                                        _param_tensors(base, "ef_state"))
         logits = base.forward_logits_global()
         assert logits.shape == (run.graph.num_vertices, 16)
         assert np.isfinite(logits).all()
@@ -1448,6 +1493,8 @@ def phase_codecs(torch, spmm, tiling, gnn_train, gnn_serve, fullbatch,
         run = gnn_train.run(TRAIN_WIDTH + ["--model", "sage", "--agg-backend",
                                            "tiled", "--codec", "int8"])
     base = run.trainer
+    ORACLES["codec halo sage tiled int8"] = (_param_tensors(base),
+                                             _param_tensors(base, "ef_state"))
     sage = base.spec
     key = ("halo", "sage", "tiled", "int8")
     record(key, base, run.losses, run.step_seconds, launches,
@@ -1616,6 +1663,280 @@ def phase_codecs(torch, spmm, tiling, gnn_train, gnn_serve, fullbatch,
     return results, main_launches
 
 
+# --------------------------------------------------------------- phase 10
+def elastic_shapes(torch, gnn_train, fullbatch, tiling, seen) -> int:
+    """Phase 10's k=3 halo book built before phase 5, on the host: its
+    stacked layout joins `seen` at every (combiner, rows, F) a SAGE tiled
+    halo step launches at k=3 (the elastic run's shrunken cluster), so
+    phase 5 times those shapes on the layout phase 10 runs. Returns the
+    rows (k x R) of that launch."""
+    args = gnn_train.parser().parse_args(
+        TRAIN_WIDTH + ["--model", "sage", "--agg-backend", "tiled"])
+    g, _, _, _, spec = gnn_train.problem(args)
+    assignment = gnn_train.partition_edges(g, ELASTIC_K, args.partitioner,
+                                           seed=args.seed)
+    book = fullbatch.build_book(g, assignment, ELASTIC_K, sync_mode="halo",
+                                tiled_layout=True)
+    rows = ELASTIC_K * tiling.tiled_shape(book.v_max + 1, 256)[0]
+    ldst = torch.as_tensor(book.agg_ldst.reshape(-1), device="cuda")
+    for c, f in expected_launches(spec, 1):
+        seen[(c, rows, f)] = (ldst, torch.float32,
+                              {"tile_v": 256, "block_e": 512})
+    say(f"[robust] elastic layout ({args.graph} {args.scale}, "
+        f"{args.partitioner}, k={ELASTIC_K}): rows {rows}, "
+        f"{_padding(book.agg_ldst.reshape(-1))}")
+    return rows
+
+
+def _hold_state(torch, got, want, what) -> None:
+    """Two lists of tensors equal bit for bit."""
+    assert len(got) == len(want) > 0 and all(
+        torch.equal(x, y) for x, y in zip(got, want)), (
+        f"{what}: not bit for bit")
+
+
+def phase_robust(torch, spmm, tiling, gnn_train, gnn_serve, models, optim,
+                 train, elastic_rows) -> tuple[dict, dict]:
+    """Checkpoints, faults and recovery at full width, each run held to an
+    earlier phase's run of this call (see the module docstring, phase 10).
+    The launch counters are set to 0 before and read after each run.
+    Returns the results and the tiled runs' launches."""
+    from repro_torch.fault import FaultInjector, FaultPlan, WorkerCrash
+    from repro_torch.fault import recovery
+
+    results, main_launches = {}, {}
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def crash(argv, spec_):
+        """One gnn_train run that must end in the injected crash; returns
+        its launches and wall seconds."""
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        crashed = False
+        with recording(spmm) as launches:
+            try:
+                gnn_train.run(argv + ["--inject-fault", spec_])
+            except WorkerCrash:
+                crashed = True
+        assert crashed, f"{spec_}: the run did not crash"
+        return launches, time.perf_counter() - t0
+
+    def resume(argv):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with recording(spmm) as launches:
+            run = gnn_train.run(argv + ["--resume"])
+        return run, launches, time.perf_counter() - t0
+
+    def hold_fb_launches(key, tr, launches, steps):
+        want = expected_launches(tr.spec, steps)
+        rows = {r for (_, r, _) in launches}
+        assert (_by_combiner_width(launches) == want
+                and rows == {tr.book.k * tr.blocks.rows_padded}), (
+            f"{key}: launches {launches}, expected {want}")
+        main_launches[key] = launches
+
+    def ckpt_record(run):
+        """(the run's checkpoint results, a line saying them)."""
+        ck = run.checkpoints
+        return ({"resumed_from": ck.resumed_from, "ckpt_bytes": ck.nbytes,
+                 "ckpt_save_seconds": ck.save_seconds,
+                 "restore_seconds": ck.restore_seconds},
+                f"checkpoint {ck.nbytes / 2**20:.2f} MiB a save, save "
+                f"seconds {[round(t, 4) for t in ck.save_seconds]}, restore "
+                f"{ck.restore_seconds:.4f}s")
+
+    # full batch, fp32: GAT tiled halo crashed at epoch 2, resumed
+    for name, extra_argv, oracle, corrupt in [
+            ("halo gat tiled", ["--model", "gat"], "halo gat tiled", False),
+            ("halo sage tiled int8", ["--model", "sage", "--codec", "int8"],
+             "codec halo sage tiled int8", True)]:
+        argv = TRAIN_WIDTH + extra_argv + [
+            "--agg-backend", "tiled", "--ckpt-dir", str(CKPT_ROOT / name)]
+        crash_launches, crash_wall = crash(argv, "crash@step:2")
+        run, launches, wall = resume(
+            argv + (["--inject-fault", "corrupt-ckpt"] if corrupt else []))
+        tr = run.trainer
+        start = 1 if corrupt else 2
+        saved, note = ckpt_record(run)
+        assert saved["resumed_from"] == start - 1 and \
+            run.start_step == start, (name, saved, run.start_step)
+        hold_fb_launches(f"robust crash {name}", tr, crash_launches, 2)
+        hold_fb_launches(f"robust resume {name}", tr, launches,
+                         TRAIN_STEPS - start)
+        want = (train["codecs"][name] if corrupt else train[name])["losses"]
+        assert run.losses == want[start:], (name, run.losses, want)
+        params, ef = ORACLES[oracle]
+        _hold_state(torch, _param_tensors(tr), params, f"{name} parameters")
+        if ef:
+            _hold_state(torch, _param_tensors(tr, "ef_state"), ef,
+                        f"{name} EF carry")
+        if corrupt:
+            plan = run.fault_plan
+            assert plan.injected_count == plan.handled_count == 1
+        results[f"fullbatch {name}"] = {
+            **saved, "losses": run.losses,
+            "crash_wall_seconds": crash_wall, "resume_wall_seconds": wall,
+            "step_seconds": run.step_seconds, "peak_bytes": run.peak_memory,
+            "corrupt_fallback": corrupt}
+        say(f"[robust] full batch {name}: crashed after epochs 0-1 "
+            f"({crash_wall:.1f}s), resumed from epoch {start - 1}"
+            f"{' past a corrupt newest checkpoint' if corrupt else ''}: "
+            f"epochs {start}-{TRAIN_STEPS - 1} losses {run.losses} == phase "
+            f"{9 if corrupt else 7}'s, final parameters"
+            f"{' and EF carry' if ef else ''} bit for bit; {note}"
+            f"; step seconds {[round(t, 4) for t in run.step_seconds]}, "
+            f"peak {run.peak_memory / 2**30:.2f} GiB, wall {wall:.1f}s")
+        del run, tr
+    torch.cuda.empty_cache()
+
+    # mini batch: GAT tiled overlapped crashed at step 3, resumed
+    argv = MB_WIDTH + ["--model", "gat", "--agg-backend", "tiled",
+                       "--overlap", "--ckpt-dir", str(CKPT_ROOT / "mb gat")]
+    crash_launches, crash_wall = crash(argv, "crash@step:3")
+    run, launches, wall = resume(argv)
+    base = run.trainer
+    saved, note = ckpt_record(run)
+    assert saved["resumed_from"] == 2 and run.start_step == 3, saved
+    want = train["minibatch"]["gat tiled serial"]["losses"]
+    assert run.losses == want[3:], (run.losses, want)
+    for key, got, steps in [("crash", crash_launches, 3),
+                            ("resume", launches, len(run.losses))]:
+        assert dict(got) == expected_minibatch_launches(
+            base.spec, base.plan, tiling, base.book.k, steps), (key, got)
+        main_launches[f"robust {key} minibatch gat overlap"] = got
+    results["minibatch gat tiled overlap"] = {
+        **saved, "losses": run.losses,
+        "crash_wall_seconds": crash_wall, "resume_wall_seconds": wall,
+        "step_seconds": run.step_seconds}
+    say(f"[robust] mini batch gat tiled overlapped: crashed at step 3 "
+        f"({crash_wall:.1f}s), resumed from step 2: steps "
+        f"3-{2 + len(run.losses)} losses {run.losses} == phase 8's serial "
+        f"CLI losses bit for bit; {note}; step seconds "
+        f"{[round(t, 4) for t in run.step_seconds]}, wall {wall:.1f}s")
+    del run
+
+    # mini batch: SAGE tiled serial through the trainer API, three faults
+    # retried or absorbed
+    plan = FaultPlan.parse(RETRY_PLAN, seed=0)
+    sage = dataclasses.replace(base.spec, model="sage")
+    params = models.init_params(sage, seed=0, device=base.device)
+    tr = dataclasses.replace(
+        base, spec=sage, params=params, opt_state=optim.adam_init(params),
+        overlap=False, start_step=0, injector=FaultInjector(plan),
+        ef_state=None)
+    t0 = time.perf_counter()
+    sms, launches, peak = mb_steps(torch, spmm, tr, MB_STEPS)
+    wall = time.perf_counter() - t0
+    ref = train["minibatch"]["sage tiled serial"]
+    losses = [s.loss for s in sms]
+    assert losses == ref["losses"], (losses, ref["losses"])
+    assert plan.injected_count == plan.handled_count == len(RETRY_PLAN), (
+        plan.injected_count, plan.handled_count)
+    assert dict(launches) == expected_minibatch_launches(
+        sage, base.plan, tiling, base.book.k, MB_STEPS)
+    main_launches["robust minibatch sage retried"] = launches
+    walls = [s.step_wall_host for s in sms]
+    phases = {name: [getattr(s, f"{name}_time_host") for s in sms]
+              for name in ("sample", "fetch")}
+    results["minibatch sage tiled retried"] = {
+        "faults": RETRY_PLAN, "losses": losses, "step_wall_seconds": walls,
+        "phase_seconds": phases,
+        "fault_free_step_wall_seconds": ref["step_wall_seconds"],
+        "peak_bytes": peak, "wall_seconds": wall,
+        "injected": plan.injected_count, "handled": plan.handled_count}
+    say(f"[robust] mini batch sage tiled serial under {RETRY_PLAN}: losses "
+        f"== phase 8's bit for bit, injected == handled == "
+        f"{plan.injected_count}; step walls "
+        f"{[round(t, 4) for t in walls]}s (phase 8, no faults: "
+        f"{[round(t, 4) for t in ref['step_wall_seconds']]}), sample "
+        f"{[round(t, 4) for t in phases['sample']]}, fetch "
+        f"{[round(t, 4) for t in phases['fetch']]}")
+    device = base.device
+    del tr, base, sms
+    torch.cuda.empty_cache()
+
+    # elastic: SAGE tiled halo, k 4 -> 3 -> 4
+    args = gnn_train.parser().parse_args(
+        TRAIN_WIDTH + ["--model", "sage", "--agg-backend", "tiled"])
+    g, feats, labels, mask, spec = gnn_train.problem(args)
+    plan = FaultPlan.parse(ELASTIC_PLAN, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(spmm) as launches:
+        res = recovery.run_elastic_fullbatch(
+            g, feats, labels, mask, spec, k=args.k, epochs=TRAIN_STEPS,
+            device=device, plan=plan,
+            partitioner=args.partitioner, seed=args.seed,
+            lr=float(TRAIN_LR))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert res.k_history == [4, 3, 3, 4, 4], res.k_history
+    assert plan.injected_count == plan.handled_count == 2
+    diff = hold_losses(res.losses, train["halo sage tiled"]["losses"],
+                       "elastic sage vs phase 7")
+    rows4 = args.k * res.trainer.blocks.rows_padded
+    per_k = {args.k: 0, ELASTIC_K: 0}
+    for k in res.k_history:
+        per_k[k] += 1
+    want = {}
+    for k, rows in ((args.k, rows4), (ELASTIC_K, elastic_rows)):
+        for (c, f), n in expected_launches(spec, per_k[k]).items():
+            want[(c, rows, f)] = n
+    assert dict(launches) == want, (dict(launches), want)
+    main_launches["robust elastic sage"] = launches
+    events = [{"epoch": e.epoch, "action": e.action, "old_k": e.old_k,
+               "new_k": e.new_k, "repartition_seconds": e.repartition_s,
+               "first_step_seconds": e.compile_s,
+               "recovery_time_model": e.estimate.recovery_time,
+               "restore_time_model": e.estimate.restore_time}
+              for e in res.events]
+    results["elastic sage tiled halo"] = {
+        "plan": ELASTIC_PLAN, "k_history": res.k_history,
+        "losses": res.losses, "max_abs_dloss_vs_phase7": diff,
+        "events": events, "peak_bytes": peak, "wall_seconds": wall,
+        "state_bytes": recovery._state_bytes(res.trainer)}
+    say(f"[robust] elastic sage tiled halo: k {res.k_history}, losses "
+        f"{res.losses}, max |dloss| vs phase 7 {diff:.3g} (limit "
+        f"{LOSS_TOL}); rescales "
+        + "; ".join(f"epoch {e['epoch']} {e['action']} {e['old_k']}->"
+                    f"{e['new_k']}: re-partition + rebuild "
+                    f"{e['repartition_seconds']:.2f}s, first step after "
+                    f"{e['first_step_seconds']:.4f}s, modeled recovery "
+                    f"{e['recovery_time_model']:.3f}s" for e in events)
+        + f"; state {recovery._state_bytes(res.trainer) / 2**20:.2f} MiB, "
+        f"peak {peak / 2**30:.2f} GiB, wall {wall:.1f}s")
+    del res
+    torch.cuda.empty_cache()
+
+    # serving: a worker dies at t=1.0 s
+    out, launches, summary = serve_once(
+        torch, spmm, gnn_serve,
+        FULL_WIDTH + ["--model", "gat", "--agg-backend", "tiled",
+                      "--qps", "100"] + DEATH_PLAN,
+        "gat tiled, worker 1 dies at t=1.0")
+    rep, plan = out.report, out.fault_plan
+    assert _launched(launches, "sum") > 0 and _launched(launches, "max") > 0
+    main_launches["robust serve gat worker-death"] = launches
+    assert rep.dead_worker == 1 and rep.rerouted > 0, rep.rerouted
+    assert plan.injected_count == plan.handled_count == 1
+    ts = rep.transition_stats()
+    results["serve gat tiled worker-death"] = {
+        **summary, "served": rep.served(), "rerouted": rep.rerouted,
+        "transition": ts}
+    say(f"[robust] serve gat tiled, worker {rep.dead_worker} dies at "
+        f"t={ts['fault_time']}s: {rep.served()}/200 answered, "
+        f"{rep.rerouted} rerouted, transition window "
+        f"{ts['window'] * 1e3:.1f} ms over {ts['requests']} requests, "
+        f"modeled p50 {ts['p50'] * 1e3:.3f} ms p99 {ts['p99'] * 1e3:.3f} ms")
+    del out
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[robust] phase 10 took {results['phase_seconds']:.1f}s")
+    return results, main_launches
+
+
 # ---------------------------------------------------------------- phase 5
 def phase_shapes(torch, spmm, seen) -> dict:
     """The kernel at every shape phase 4 launched it at, on that launch's
@@ -1634,12 +1955,9 @@ def phase_shapes(torch, spmm, seen) -> dict:
             combiner, reps=3 if big else 20, **kw)
         del msgs
         torch.cuda.empty_cache()
-    layerwise = max(seen[key][0].numel() for key in seen)
-    for ldst, _, _ in seen.values():
-        if ldst.numel() == layerwise:
-            say(f"[shapes] main-path layout (OR 1.0, hep100, k=4): "
-                f"{_padding(ldst.cpu().numpy())}")
-            break
+    layerwise = max(seen, key=lambda key: seen[key][0].numel())
+    say(f"[shapes] largest layout (rows={layerwise[1]}): "
+        f"{_padding(seen[layerwise][0].cpu().numpy())}")
     return rows_out
 
 
@@ -2221,7 +2539,8 @@ def main() -> int:
     minibatch_shapes(torch, gnn_train, minibatch, partition_vertices, tiling,
                      seen)
     ring_shapes(torch, gnn_train, fullbatch, tiling, seen)
-    say(f"[time] mini-batch and ring shapes "
+    elastic_rows = elastic_shapes(torch, gnn_train, fullbatch, tiling, seen)
+    say(f"[time] mini-batch, ring and elastic shapes "
         f"{time.perf_counter() - t_start:.1f}s")
     shapes = phase_shapes(torch, spmm, seen)
     say(f"[time] shapes {time.perf_counter() - t_start:.1f}s")
@@ -2238,14 +2557,19 @@ def main() -> int:
         torch, spmm, tiling, gnn_train, gnn_serve, fullbatch, models, optim,
         wire, train, serve_fp32)
     say(f"[time] codecs {time.perf_counter() - t_start:.1f}s")
-    for run, n in {**train_launches, **mb_launches,
-                   **codec_launches}.items():
+    train["robust"], robust_launches = phase_robust(
+        torch, spmm, tiling, gnn_train, gnn_serve, models, optim, train,
+        elastic_rows)
+    say(f"[time] robust {time.perf_counter() - t_start:.1f}s")
+    for run, n in {**train_launches, **mb_launches, **codec_launches,
+                   **robust_launches}.items():
         assert set(n) <= set(shapes), (
             f"{run} launched the kernel at shapes phase 5 did not time: "
             f"{sorted(set(n) - set(shapes))}")
     launches.update(train_launches)
     launches.update(mb_launches)
     launches.update(codec_launches)
+    launches.update(robust_launches)
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -2257,7 +2581,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/segment_spmm.py:59",
             # launches at this shape over the GAT and SAGE tiled serving,
             # full-batch and mini-batch training runs, with and without a
-            # lossy codec
+            # lossy codec, crashed, resumed, retried, rescaled or failed
+            # over
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "E_tiled": row["E_tiled"],

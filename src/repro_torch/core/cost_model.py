@@ -1,9 +1,10 @@
-# Copy of the serving, full-batch and mini-batch parts of
+# Copy of the serving, full-batch, mini-batch and recovery parts of
 # repro/core/cost_model.py (NumPy, with the port's wire codecs).
-# tests/test_torch_host.py, tests/test_torch_sync.py and
-# tests/test_torch_wire.py hold `serve_request`, `fullbatch_epoch` (edge and
-# block-row books), `ring_bytes_per_round`, `minibatch_step`,
-# `overlapped_step_time` and `collective_budget` equal to the originals.
+# tests/test_torch_host.py, tests/test_torch_sync.py,
+# tests/test_torch_wire.py and tests/test_torch_fault.py hold
+# `serve_request`, `fullbatch_epoch` (edge and block-row books),
+# `ring_bytes_per_round`, `minibatch_step`, `overlapped_step_time`,
+# `collective_budget` and `recovery_time` equal to the originals.
 """Cluster cost model — prices one serving micro-batch, one full-batch
 training epoch and one mini-batch training step on the paper's 32-machine
 cluster (§3: 8-core Haswell 2.4 GHz, 64 GB RAM).
@@ -36,9 +37,10 @@ if TYPE_CHECKING:
     from repro_torch.gnn.models import GNNSpec
 
 __all__ = ["ClusterSpec", "FullBatchEstimate", "MiniBatchEstimate",
-           "PAPER_CLUSTER", "ServeEstimate", "collective_budget",
-           "fullbatch_epoch", "minibatch_step", "overlapped_step_time",
-           "ring_bytes_per_round", "serve_request"]
+           "PAPER_CLUSTER", "RecoveryEstimate", "ServeEstimate",
+           "collective_budget", "fullbatch_epoch", "minibatch_step",
+           "overlapped_step_time", "recovery_time", "ring_bytes_per_round",
+           "serve_request"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -413,4 +415,52 @@ def serve_request(
         compute_time=compute,
         fetch_bytes=fetch_bytes,
         wire_bytes=wire_bytes,
+    )
+
+
+# ---------------------------------------------------------------------------
+# failure recovery
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryEstimate:
+    """Cluster cost of one recovery: restore + re-partition + re-compile.
+
+    The three terms are the paper-cluster price of what elastic recovery
+    actually does (fault/recovery.py): read the checkpoint back from the
+    shared filesystem, re-run the partitioner for the new worker count, and
+    re-trace/re-compile the step function for the new mesh shape. This is
+    the amortization question (tab3) extended to failures: a high-quality
+    partitioner's epoch-time advantage must now also pay back its
+    re-partition cost every time recovery forces one.
+    """
+
+    restore_time: float       # checkpoint read: bytes / disk_bw + latency
+    repartition_time: float   # measured host partitioner wall (real data)
+    recompile_time: float     # XLA re-trace + re-compile for the new mesh
+
+    @property
+    def recovery_time(self) -> float:
+        return self.restore_time + self.repartition_time + self.recompile_time
+
+
+def recovery_time(
+    ckpt_bytes: float,
+    partition_time: float,
+    *,
+    cluster: ClusterSpec = PAPER_CLUSTER,
+    compile_time: Optional[float] = None,
+) -> RecoveryEstimate:
+    """Price one recovery. `ckpt_bytes` is the checkpointable state volume
+    (params + opt state + EF carry); `partition_time` is the MEASURED
+    re-partition wall (the partitioners run for real here, exactly like the
+    partition_time column of every study row); `compile_time` overrides the
+    cluster's re-compile constant when a measured value exists."""
+    restore = cluster.net_latency + float(ckpt_bytes) / cluster.disk_bw
+    return RecoveryEstimate(
+        restore_time=restore,
+        repartition_time=float(partition_time),
+        recompile_time=(cluster.recompile_s if compile_time is None
+                        else float(compile_time)),
     )

@@ -1,5 +1,5 @@
 # Copy of repro/gnn/feature_store.py (NumPy only, with the port's wire
-# codecs): the fault-injection seam and the tracer calls are left out.
+# codecs and fault-injection seam): the tracer calls are left out.
 # tests/test_torch_host.py and tests/test_torch_wire.py hold its results
 # equal to the original.
 """Partitioned row stores: owner shards + per-worker static caches.
@@ -39,6 +39,7 @@ import numpy as np
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition_book import VertexPartitionBook
 from repro_torch.core.wire import Codec, as_codec
+from repro_torch.fault import inject as fault_inject
 
 __all__ = [
     "CACHE_POLICIES",
@@ -257,6 +258,9 @@ class RowStore:
         return it with the phase accounting."""
         if self.rows is None:
             raise ValueError("accounting-only store (built without rows)")
+        hook = fault_inject.fetch_hook()
+        if hook is not None:  # injection seam: may raise TransientFetchFault
+            hook(worker, ids)
         ids = np.asarray(ids, dtype=np.int64)
         local, hit, miss = self.split(worker, ids)
         out = np.empty((ids.shape[0], self.row_dim), dtype=self.rows.dtype)

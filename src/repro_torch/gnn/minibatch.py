@@ -30,8 +30,9 @@ The step is repeatable bit for bit on the card (`repeatable_step`):
 PyTorch's deterministic algorithms are switched on for it alone, which
 sends the scatter backend's `index_add_` and the other accumulating
 scatters to their sort-based, fixed-order implementations, under every
-codec. The fault injector is not yet ported (ROADMAP queue 1, item 6) and
-is refused where it would be set.
+codec. A fault injector (fault/inject.py) reaches the batch pipeline's
+seams through `build(injector=...)`; with `start_step` a resumed trainer
+draws the batches an uninterrupted one would from that step on.
 """
 
 from __future__ import annotations
@@ -305,6 +306,7 @@ class MiniBatchTrainer:
     overlap: bool = False
     prefetch_depth: int = 2
     start_step: int = 0                # first global step to draw
+    injector: Any = None               # fault.FaultInjector (None = no faults)
     repeatable: bool = True            # the step under `repeatable_step`
     codec: Any = None                  # wire codec name/instance (None=fp32)
     ef_state: Any = None               # error-feedback carry (lossy codecs)
@@ -337,9 +339,6 @@ class MiniBatchTrainer:
         injector=None,
         repeatable: bool = True,
     ) -> "MiniBatchTrainer":
-        if injector is not None:
-            raise NotImplementedError(
-                "fault injection is not yet ported (ROADMAP queue 1, item 6)")
         book = build_vertex_book(graph, vertex_assignment, k)
         fanouts = tuple(fanouts or PAPER_FANOUTS[spec.num_layers])
         train_ids = np.where(train_mask)[0]
@@ -360,7 +359,8 @@ class MiniBatchTrainer:
             params=params, opt_state=adam_init(params), seed=seed,
             lr=lr, rebalance=rebalance, store=store,
             overlap=overlap, prefetch_depth=prefetch_depth,
-            start_step=start_step, repeatable=repeatable, codec=codec,
+            start_step=start_step, injector=injector, repeatable=repeatable,
+            codec=codec,
             _load_ema=np.ones(k), _seed_share=np.full(k, 1.0 / k),
         )
 
@@ -374,7 +374,8 @@ class MiniBatchTrainer:
             plan=self.plan, fanouts=self.fanouts, labels=self.labels,
             train_pools=self.train_vertices_per_worker,
             global_batch=self.global_batch, tiled_layout=self._tiled_layout,
-            device=self.device, seed=self.seed, start_step=self.start_step,
+            device=self.device, seed=self.seed, injector=self.injector,
+            start_step=self.start_step,
         )
         engine = PipelineEngine(
             preparer, overlap=self.overlap, prefetch_depth=self.prefetch_depth)

@@ -1,8 +1,7 @@
 """Overlapped mini-batch execution: sampling and feature prefetch pipelined
 against the device step.
 
-Twin of repro/gnn/pipeline.py, without its fault seams and tracer calls.
-Per mini-batch:
+Twin of repro/gnn/pipeline.py, without its tracer calls. Per mini-batch:
 
   draw      per-worker seed draw            (host, per-step RNG streams)
   sample    k workers' k-hop MFGs           (host thread pool, parallel)
@@ -24,6 +23,14 @@ schedule. One `np.random.SeedSequence(seed)` spawns a child per step, which
 spawns one grandchild per worker; worker w's seed draw and its sampling for
 step t both use that (t, w) generator. Both modes therefore give the same
 batches bit for bit, and the same batches as the reference's preparer.
+
+Fault seams (fault/inject.py), one `None` check each when no injector is
+set: `prepare` calls `at_step(t)` (a `crash` raises `WorkerCrash`); each
+worker's draw + sample calls `on_sample(t, w)` and its gather `on_fetch(t,
+w)`, both under `retry_call`, and a retried attempt rebuilds its generator
+from the same (t, w) `SeedSequence`, so it is bit for bit the first. An
+injected fault raised on the producer thread reaches the consumer as
+itself, as serial mode raises it inline.
 
 The transfer on the card: the stacked host arrays are written into
 page-locked memory during the fetch and copied with `non_blocking=True` on
@@ -50,6 +57,7 @@ import torch
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition_book import VertexPartitionBook
+from repro_torch.fault.inject import FaultInjector, InjectedFault, retry_call
 from repro_torch.gnn.feature_store import FeatureStore, FetchStats
 from repro_torch.gnn.sampling import SamplePlan, SampledBatch, sample_blocks
 
@@ -122,7 +130,10 @@ class BatchPreparer:
         tiled_layout: bool,
         device: torch.device,
         seed: int = 0,
+        injector: Optional[FaultInjector] = None,
         start_step: int = 0,
+        retry_attempts: int = 3,
+        retry_timeout: float = 5.0,
     ) -> None:
         self.graph = graph
         self.book = book
@@ -133,6 +144,11 @@ class BatchPreparer:
         self.train_pools = train_pools
         self.global_batch = global_batch
         self.tiled_layout = tiled_layout
+        self.injector = injector
+        self.retry_attempts = retry_attempts
+        self.retry_timeout = retry_timeout
+        if injector is not None and injector.k is None:
+            injector.k = len(train_pools)
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
@@ -156,7 +172,9 @@ class BatchPreparer:
         `spawn` is stateful, so step children MUST be spawned in step order
         — `prepare()` is the only caller and runs on one control thread per
         engine. The worker grandchildren make batch t worker w a pure
-        function of (seed, t, w), independent of the sampling threads."""
+        function of (seed, t, w), independent of the sampling threads, and
+        a retried (t, w) phase rebuilds its generator from the same
+        sequence, so the retried batch is bit for bit the first attempt."""
         (step_ss,) = self._root_ss.spawn(1)
         return list(step_ss.spawn(len(self.train_pools)))
 
@@ -167,11 +185,15 @@ class BatchPreparer:
         return np.minimum(counts, self.plan.seeds)
 
     # ------------------------------------------------------------- sampling
-    def _draw_and_sample(self, w: int, ss: np.random.SeedSequence,
+    def _draw_and_sample(self, index: int, w: int,
+                         ss: np.random.SeedSequence,
                          count: int) -> SampledBatch:
-        """Worker w's draw + k-hop sampling; everything random derives from
-        `ss`."""
+        """Worker w's draw + k-hop sampling for step `index`, one attempt;
+        everything random derives from `ss` inside this call, so a retry
+        gets the identical batch."""
         gen = np.random.default_rng(ss)
+        if self.injector is not None:
+            self.injector.on_sample(index, w)
         pool = self.train_pools[w]
         if pool.shape[0] == 0:
             seeds = np.zeros(0, np.int64)
@@ -183,6 +205,13 @@ class BatchPreparer:
             self.labels, owner=self.book.owner, worker=w,
             tiled_layout=self.tiled_layout,
         )
+
+    def _sample_job(self, index: int, w: int, ss: np.random.SeedSequence,
+                    count: int) -> SampledBatch:
+        return retry_call(
+            lambda: self._draw_and_sample(index, w, ss, count),
+            phase="sample", attempts=self.retry_attempts,
+            timeout=self.retry_timeout)
 
     # ------------------------------------------------------------- stacking
     def _host_empty(self, shape: tuple, dtype) -> np.ndarray:
@@ -198,7 +227,12 @@ class BatchPreparer:
             out[w] = a
         return out
 
-    def _stack_batches(self, batches: "list[SampledBatch]"):
+    def _gather_worker(self, index: int, w: int, ids: np.ndarray):
+        if self.injector is not None:
+            self.injector.on_fetch(index, w)
+        return self.store.gather(w, ids)
+
+    def _stack_batches(self, index: int, batches: "list[SampledBatch]"):
         """The feature-loading phase: every worker pulls its input vertices
         through the feature store ({shard, cache, remote} split), written
         straight into the stacked [k, ...] host layout."""
@@ -209,7 +243,11 @@ class BatchPreparer:
         for w, b in enumerate(batches):
             valid = b.input_mask
             x[w][~valid] = 0
-            x[w][valid], st = self.store.gather(w, b.input_ids[valid])
+            ids = b.input_ids[valid]
+            x[w][valid], st = retry_call(
+                lambda w=w, ids=ids: self._gather_worker(index, w, ids),
+                phase="fetch", attempts=self.retry_attempts,
+                timeout=self.retry_timeout)
             fetch.append(st)
         stacked = {
             "x": x,
@@ -280,17 +318,19 @@ class BatchPreparer:
         wall."""
         index = self._next_index
         self._next_index += 1
+        if self.injector is not None:
+            self.injector.at_step(index)
         t0 = time.perf_counter()
         seqs = self._step_seed_seqs()
         counts = self._seed_counts(seed_share)
-        jobs = [(w, ss, int(counts[w])) for w, ss in enumerate(seqs)]
+        jobs = [(index, w, ss, int(counts[w])) for w, ss in enumerate(seqs)]
         if executor is not None:
             batches = list(executor.map(
-                lambda job: self._draw_and_sample(*job), jobs))
+                lambda job: self._sample_job(*job), jobs))
         else:
-            batches = [self._draw_and_sample(*job) for job in jobs]
+            batches = [self._sample_job(*job) for job in jobs]
         t1 = time.perf_counter()
-        host, fetch = self._stack_batches(batches)
+        host, fetch = self._stack_batches(index, batches)
         t2 = time.perf_counter()
         stacked, ready = self._transfer(host)
         t3 = time.perf_counter()
@@ -413,6 +453,11 @@ class PipelineEngine:
         wait = time.perf_counter() - t0
         if isinstance(item, _Poison):
             self.close()
+            if isinstance(item.error, InjectedFault):
+                # an injected fault keeps its type across the producer
+                # boundary, so the caller's recovery (crash -> resume) sees
+                # what serial mode raises inline
+                raise item.error
             if item.error is not None:
                 raise RuntimeError("pipeline producer failed") from item.error
             raise RuntimeError("pipeline closed")

@@ -16,8 +16,19 @@ reader, and the modeled service time is priced from the encoded bytes.
 Traces and study rows (`--trace`, `--out-json`, ROADMAP queue 1, item 7)
 are not yet ported and are refused.
 
+`--inject-fault worker-death@t:T,worker:W` kills serving worker W at
+virtual time T: its unanswered requests fail over to the survivors after
+`--detect-delay` seconds, by a map that is replica-aware under an edge
+partitioner (each vertex to the first survivor holding a mirror of it) and
+a deterministic spread under a vertex one; every request is still
+answered, and the worker-death summary prints the rerouted count and the
+transition window's latency. An unknown spec exits 1 naming the valid
+kinds.
+
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --graph OR \
       --scale 0.05 --partitioner hep100 --k 4 --model sage --qps 100 --smoke
+  PYTHONPATH=src python -m repro_torch.launch.gnn_serve --graph OR \
+      --scale 0.05 --k 4 --smoke --inject-fault worker-death@t:1.0,worker:1
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ from repro_torch.core.metrics import edge_partition_metrics, vertex_partition_me
 from repro_torch.core.partition_book import build_vertex_book
 from repro_torch.core.vertex_partition import VERTEX_PARTITIONERS, partition_vertices
 from repro_torch.core.wire import CODECS
+from repro_torch.fault import FaultPlan, FaultSpecError
+from repro_torch.fault.recovery import failover_assignment
 from repro_torch.gnn.feature_store import CACHE_POLICIES
 from repro_torch.gnn.inference import LayerwiseInference, edge_assignment_from_vertex
 from repro_torch.gnn.models import GNNSpec, init_params
@@ -91,6 +104,17 @@ def parser() -> argparse.ArgumentParser:
                     choices=list(CACHE_POLICIES))
     ap.add_argument("--cache-budget", type=int, default=0,
                     help="cached remote embedding rows per worker")
+    ap.add_argument("--inject-fault", action="append", default=[],
+                    metavar="SPEC",
+                    help="deterministic fault injection (repeatable): "
+                         "worker-death@t:0.5,worker:1 kills a serving "
+                         "worker at virtual time t; its requests fail over "
+                         "to surviving workers (replica-aware "
+                         "master_assignment re-derivation) and EVERY "
+                         "request is still answered")
+    ap.add_argument("--detect-delay", type=float, default=0.0,
+                    help="seconds before a death is detected (rerouted "
+                         "requests become visible to survivors after it)")
     ap.add_argument("--smoke", action="store_true",
                     help="CI-fast: trim the request trace")
     ap.add_argument("--seed", type=int, default=0)
@@ -106,6 +130,7 @@ class ServeRun:
     embeddings: list             # per-layer [V, d_l], input side first
     inference: LayerwiseInference
     report: ServingReport
+    fault_plan: Optional[FaultPlan] = None  # the --inject-fault plan, if any
 
 
 def run(argv: Optional[list] = None) -> ServeRun:
@@ -115,6 +140,15 @@ def run(argv: Optional[list] = None) -> ServeRun:
     args = parser().parse_args(argv)
     if args.smoke:
         args.requests = min(args.requests, 200)
+    plan = None
+    if args.inject_fault:
+        try:
+            plan = FaultPlan.parse(args.inject_fault, seed=args.seed)
+        except FaultSpecError as e:
+            print(f"[serve] bad --inject-fault: {e}")
+            sys.exit(1)
+        print(f"[serve] fault plan: "
+              f"{'; '.join(ev.describe() for ev in plan.events)}")
     device = resolve_device(args.device)
 
     g = paper_graph(args.graph, scale=args.scale, seed=0)
@@ -178,7 +212,21 @@ def run(argv: Optional[list] = None) -> ServeRun:
     request_ids = rng.integers(0, g.num_vertices, args.requests)
     arrivals = np.sort(rng.uniform(0.0, args.requests / args.qps,
                                    args.requests))
-    report = run_serving_sim(engines, batchers, owner, request_ids, arrivals)
+    failover = None
+    if plan is not None and plan.events_of("worker-death"):
+        ev = plan.events_of("worker-death")[0]
+        dead = plan.resolve_worker(ev, args.k)
+        # replica-aware only for edge partitions: mirrors already hold the
+        # dead master's vertices; vertex partitions spread deterministically
+        book = engine.book if args.partitioner in EDGE_PARTITIONERS else None
+        failover = failover_assignment(owner, dead, args.k, book=book)
+        moved = int((np.asarray(owner) == dead).sum())
+        print(f"[serve] failover map: worker {dead} dies, {moved} vertices "
+              f"re-mastered "
+              f"({'replica-aware' if book is not None else 'spread'})")
+    report = run_serving_sim(engines, batchers, owner, request_ids, arrivals,
+                             fault_plan=plan, failover_owner=failover,
+                             detect_delay=args.detect_delay)
 
     for row in report.worker_rows():
         print(f"[serve] worker {row['worker']}: served {row['served']:5d}  "
@@ -195,8 +243,20 @@ def run(argv: Optional[list] = None) -> ServeRun:
           f"wire {report.fetch.wire_bytes/2**20:.2f} MiB ({args.codec})  "
           f"host compute p50 {np.percentile(report.host_time, 50)*1e3:.2f} "
           f"ms/batch on {device}")
+    if report.fault_time is not None:
+        ts = report.transition_stats()
+        answered = report.served() == args.requests
+        print(f"[serve] worker-death: worker {report.dead_worker} died at "
+              f"t={ts['fault_time']:.3f}s, {ts['rerouted']} requests "
+              f"rerouted, transition window {ts['window']*1e3:.1f} ms "
+              f"({ts['requests']} requests, modeled p50 "
+              f"{ts['p50']*1e3:.2f} ms, p99 {ts['p99']*1e3:.2f} ms)")
+        print(f"[serve] every request answered: {answered} "
+              f"({report.served()}/{args.requests})")
+        if not answered:
+            sys.exit(1)
     return ServeRun(graph=g, spec=spec, embeddings=embeddings,
-                    inference=engine, report=report)
+                    inference=engine, report=report, fault_plan=plan)
 
 
 def main(argv: Optional[list] = None) -> None:

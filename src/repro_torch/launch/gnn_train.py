@@ -24,9 +24,26 @@ on the same data from the same weights. `--codec` sets the wire codec
 (core/wire.py) of every byte-moving path: the replica sync and the
 gradient reduce (full batch), the feature fetch and the gradient reduce
 (mini batch); `set_epoch` advances the variable codec's schedule each
-epoch. Checkpoints (`--ckpt-dir`, ROADMAP queue 1, item 6), traces and
-study rows (`--trace`, `--out-json`, item 7) are not yet ported and are
-refused.
+epoch. Traces and study rows (`--trace`, `--out-json`, ROADMAP queue 1,
+item 7) are not yet ported and are refused.
+
+Robustness, as the reference CLI has it: `--ckpt-dir` checkpoints params,
+optimizer state, the lossy codec's EF carry and the run coordinates (full
+batch each epoch, mini batch each global step, every `--ckpt-every`,
+keeping `--ckpt-keep`; ckpt/checkpoint.py, the reference's on-disk
+format); `--resume` restores the newest complete checkpoint and continues
+from the step after it: bit for bit the uninterrupted run's steps wherever
+a step repeats (the mini-batch step always; full batch, every tiled path
+on the card, and on the CPU under `torch.use_deterministic_algorithms`);
+`--inject-fault SPEC` (repeatable, fault/plan.py grammar) injects
+deterministic faults: `crash@step:N` kills the run at step N (full batch:
+epoch N), `sample-error` / `fetch-error` / `straggler` are retried or
+absorbed in the mini-batch pipeline, `corrupt-ckpt` breaks the newest
+checkpoint before `--resume` reads it (restore falls back to the one
+before). An unknown spec exits 1 naming the valid kinds. An injected crash
+prints the FATAL line and the `--resume` hint; `run` then raises
+`WorkerCrash` (so callers in process see it), and `main` turns it into
+exit code 3 (`CRASH_EXIT`).
 
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --partitioner hep100 --k 4 --model sage --epochs 5
@@ -34,6 +51,10 @@ refused.
       --scale 0.05 --k 4 --model gat --sync-mode ring --epochs 5
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --partitioner metis --k 4 --regime minibatch --batch 256
+  PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
+      --scale 0.05 --k 4 --ckpt-dir ck --inject-fault crash@step:2  # exit 3
+  PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
+      --scale 0.05 --k 4 --ckpt-dir ck --resume
 """
 
 from __future__ import annotations
@@ -43,11 +64,16 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    checkpoint_extra,
+    tree_nbytes,
+)
 from repro_torch.core.cost_model import (
     FullBatchEstimate,
     MiniBatchEstimate,
@@ -66,6 +92,14 @@ from repro_torch.core.vertex_partition import (
     partition_vertices,
 )
 from repro_torch.core.wire import CODECS
+from repro_torch.fault import (
+    FAULT_KINDS,
+    FaultInjector,
+    FaultPlan,
+    FaultSpecError,
+    WorkerCrash,
+    corrupt_latest_checkpoint,
+)
 from repro_torch.gnn.feature_store import CACHE_POLICIES
 from repro_torch.gnn.fullbatch import FullBatchTrainer
 from repro_torch.gnn.minibatch import MiniBatchTrainer, StepMetrics
@@ -83,10 +117,10 @@ TRAIN_ALLOC_CONF = "expandable_segments:True"
 # trainers' defaults (FullBatchTrainer.build 1e-2, MiniBatchTrainer.build
 # 1e-3; the reference CLI passes neither)
 DEFAULT_LR = {"fullbatch": 1e-2, "minibatch": 1e-3}
+CRASH_EXIT = 3  # injected worker crash (distinct from real failures)
 # the reference CLI's flags this port refuses, with the ROADMAP queue 1
 # item that ports them; the parser does not know them either
-NOT_PORTED = {"--ckpt-dir": "checkpoints: ROADMAP queue 1, item 6",
-              "--trace": "tracing: ROADMAP queue 1, item 7",
+NOT_PORTED = {"--trace": "tracing: ROADMAP queue 1, item 7",
               "--out-json": "study rows: ROADMAP queue 1, item 7"}
 
 
@@ -170,6 +204,27 @@ def parser() -> argparse.ArgumentParser:
                          "full batch diverges at 1e-2; 1e-3, the default of "
                          "Adam's paper (Kingma & Ba, ICLR 2015, Algorithm "
                          "1), does not")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory (ckpt/checkpoint.py: atomic "
+                         "step_<n>/ dirs, keep-last-k). Saves params + "
+                         "optimizer + codec EF carry + run coordinates")
+    ap.add_argument("--ckpt-every", type=int, default=1,
+                    help="checkpoint cadence: epochs (full batch) resp. "
+                         "global steps (mini batch) between saves")
+    ap.add_argument("--ckpt-keep", type=int, default=3,
+                    help="complete checkpoints retained (older ones GC'd)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest complete checkpoint in "
+                         "--ckpt-dir and continue from the step after it; "
+                         "where the step repeats, the resumed steps are "
+                         "the uninterrupted run's, bit for bit")
+    ap.add_argument("--inject-fault", action="append", default=[],
+                    metavar="SPEC",
+                    help="deterministic fault injection (repeatable), "
+                         "kind@key:value[,key:value...], e.g. "
+                         "crash@step:3, sample-error@step:2,worker:1, "
+                         "straggler@step:1,delay:0.05, corrupt-ckpt. "
+                         f"Kinds: {', '.join(FAULT_KINDS)}")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -191,6 +246,10 @@ class TrainRun:
                                  # over the run; None on the CPU
     step_metrics: list = dataclasses.field(default_factory=list)
     # mini batch: each step's `StepMetrics`
+    start_step: int = 0          # the first step trained (full batch: the
+                                 # epoch); > 0 after --resume
+    checkpoints: Any = None      # `RunCheckpoints` under --ckpt-dir
+    fault_plan: Any = None       # the --inject-fault plan, if any
 
 
 def run(argv: Optional[list] = None) -> TrainRun:
@@ -206,12 +265,31 @@ def run(argv: Optional[list] = None) -> TrainRun:
         raise ValueError(f"{kind} partitioners: {sorted(allowed)}; got "
                          f"{args.partitioner!r}")
     lr = DEFAULT_LR[args.regime] if args.lr is None else args.lr
+    plan = None
+    if args.inject_fault:
+        try:
+            plan = FaultPlan.parse(args.inject_fault, seed=args.seed)
+        except FaultSpecError as e:
+            print(f"[gnn] bad --inject-fault: {e}")
+            sys.exit(1)
+        print(f"[gnn] fault plan: "
+              f"{'; '.join(ev.describe() for ev in plan.events)}")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     g, feats, labels, train_mask, spec = problem(args)
+    ckpt = RunCheckpoints(args, plan) if args.ckpt_dir else None
     train = _minibatch if args.regime == "minibatch" else _fullbatch
-    out = train(args, device, lr, g, spec, feats, labels, train_mask)
+    try:
+        out = train(args, device, lr, g, spec, feats, labels, train_mask,
+                    ckpt, plan)
+    except WorkerCrash as e:
+        print(f"[gnn] FATAL: {e}")
+        if args.ckpt_dir:
+            print(f"[gnn] resume: re-run with --resume "
+                  f"(checkpoints in {args.ckpt_dir})")
+        raise
+    out.checkpoints, out.fault_plan = ckpt, plan
     if out.peak_memory is not None:
         print(f"[gnn] peak device memory {out.peak_memory / 2**30:.2f} GiB")
     return out
@@ -234,13 +312,86 @@ def problem(args: argparse.Namespace):
     return g, feats, labels, train_mask, spec
 
 
+class RunCheckpoints:
+    """A run's checkpoint side: a `CheckpointManager` over --ckpt-dir, the
+    corrupt-ckpt fault fired before a resume reads the directory, and the
+    bytes a save holds, the seconds of every save and of the restore, and
+    the step restored (host clock, the device-to-host copy included)."""
+
+    def __init__(self, args: argparse.Namespace, plan) -> None:
+        self.dir = args.ckpt_dir
+        self.resume = args.resume
+        self.plan = plan
+        self.manager = CheckpointManager(self.dir, keep=args.ckpt_keep,
+                                         every=args.ckpt_every)
+        self.nbytes = 0
+        self.save_seconds: list = []
+        self.resumed_from: Optional[int] = None
+        self.restore_seconds: Optional[float] = None
+        if plan is not None and self.resume:
+            # corrupt-ckpt: break the newest checkpoint BEFORE restore reads
+            # it — restore must fall back to the previous complete one
+            for ev in plan.pending("corrupt-ckpt"):
+                if plan.fire(ev):
+                    path = corrupt_latest_checkpoint(self.dir)
+                    print(f"[gnn] injected checkpoint corruption -> {path}")
+
+    def extra(self) -> tuple[Optional[int], dict]:
+        """(step, run coordinates) of the checkpoint a resume restores;
+        (None, {}) when not resuming or there is none."""
+        return checkpoint_extra(self.dir) if self.resume else (None, {})
+
+    def restore(self, tr, extra: dict) -> Optional[int]:
+        """Restore the newest complete checkpoint into trainer `tr` (its EF
+        carry too when the checkpoint has one); returns its step, or None
+        when there is none (the run starts fresh)."""
+        if not self.resume:
+            return None
+        tree = {"params": tr.params, "opt_state": tr.opt_state}
+        if extra.get("has_ef"):
+            tr.ef_state = tr._init_ef()
+            tree["ef"] = tr.ef_state
+        t0 = time.perf_counter()
+        step, restored = self.manager.restore(tree)
+        self.restore_seconds = time.perf_counter() - t0
+        if self.plan is not None:
+            # a corrupt-ckpt fault is handled once restore fell back
+            for ev in self.plan.fired_events():
+                if ev.kind == "corrupt-ckpt":
+                    self.plan.mark_handled(ev)
+        if step is None:
+            print("[gnn] --resume: no complete checkpoint found, "
+                  "starting fresh")
+            return None
+        tr.params = restored["params"]
+        tr.opt_state = restored["opt_state"]
+        if "ef" in restored:
+            tr.ef_state = restored["ef"]
+        self.resumed_from = step
+        return step
+
+    def save(self, step: int, tr, extra: dict) -> None:
+        tree = {"params": tr.params, "opt_state": tr.opt_state}
+        if tr.ef_state is not None:
+            tree["ef"] = tr.ef_state
+        t0 = time.perf_counter()
+        path = self.manager.maybe_save(
+            step, tree, extra={**extra, "has_ef": tr.ef_state is not None})
+        if path is not None:
+            self.save_seconds.append(time.perf_counter() - t0)
+            self.nbytes = tree_nbytes(tree)
+            print(f"[gnn] checkpoint {os.path.basename(path)}: "
+                  f"{self.nbytes / 2**20:.2f} MiB in "
+                  f"{self.save_seconds[-1]:.3f}s")
+
+
 def _peak(device: torch.device) -> Optional[int]:
     return (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
 
 
-def _fullbatch(args, device, lr, g, spec, feats, labels,
-               train_mask) -> TrainRun:
+def _fullbatch(args, device, lr, g, spec, feats, labels, train_mask, ckpt,
+               plan) -> TrainRun:
     partitioner = args.partitioner
     if args.sync_mode == "ring":
         # 1.5D: contiguous blockrow layout, no partitioning heuristic — the
@@ -264,22 +415,35 @@ def _fullbatch(args, device, lr, g, spec, feats, labels,
           f"mem max {est.memory.max()/2**20:.1f} MiB"
           + (" (OOM!)" if est.oom else ""))
 
+    start_epoch = 0
+    if ckpt is not None:
+        step_r, extra = ckpt.extra()
+        if ckpt.restore(tr, extra) is not None:
+            start_epoch = int(extra.get("epoch", step_r)) + 1
+            print(f"[gnn] resumed from checkpoint epoch {step_r} "
+                  f"-> continuing at epoch {start_epoch} (restore "
+                  f"{ckpt.restore_seconds:.3f}s)")
+    injector = FaultInjector(plan) if plan is not None else None
     losses, seconds = [], []
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         t1 = time.perf_counter()
+        if injector is not None:
+            injector.at_epoch(epoch)
         tr.set_epoch(epoch)
         loss = tr.train_step()  # returns a float: the step has ended
         seconds.append(time.perf_counter() - t1)
         losses.append(loss)
         print(f"[gnn] epoch {epoch:3d} loss {loss:.4f} "
               f"({seconds[-1]:.2f}s on {device})")
+        if ckpt is not None:
+            ckpt.save(epoch, tr, {"epoch": epoch})
     return TrainRun(graph=g, spec=spec, assignment=assignment, trainer=tr,
                     estimate=est, losses=losses, step_seconds=seconds,
-                    peak_memory=_peak(device))
+                    peak_memory=_peak(device), start_step=start_epoch)
 
 
-def _minibatch(args, device, lr, g, spec, feats, labels,
-               train_mask) -> TrainRun:
+def _minibatch(args, device, lr, g, spec, feats, labels, train_mask, ckpt,
+               plan) -> TrainRun:
     t0 = time.perf_counter()
     assignment = partition_vertices(g, args.k, args.partitioner,
                                     seed=args.seed, train_mask=train_mask)
@@ -288,33 +452,53 @@ def _minibatch(args, device, lr, g, spec, feats, labels,
     print(f"[gnn] partitioned in {pt:.2f}s: edge_cut={m.edge_cut:.3f} "
           f"vertex_bal={m.vertex_balance:.2f}")
     steps_per_epoch = max(int(train_mask.sum()) // args.batch, 1)
+    next_step, extra = 0, {}
+    if ckpt is not None:
+        gstep, extra = ckpt.extra()
+        if gstep is not None:
+            next_step = gstep + 1          # first global step to draw
     tr = MiniBatchTrainer.build(
         g, assignment, args.k, spec, feats, labels, train_mask,
         device=device, global_batch=args.batch, seed=args.seed, lr=lr,
         rebalance=args.rebalance, cache_policy=args.cache_policy,
         cache_budget=args.cache_budget, overlap=args.overlap,
-        prefetch_depth=args.prefetch_depth, codec=args.codec)
+        prefetch_depth=args.prefetch_depth, codec=args.codec,
+        start_step=next_step,
+        injector=FaultInjector(plan) if plan is not None else None)
+    start_epoch = next_step // steps_per_epoch
+    if ckpt is not None:
+        step_r = ckpt.restore(tr, extra)
+        if step_r is not None:
+            print(f"[gnn] resumed from checkpoint step {step_r} -> "
+                  f"continuing at global step {next_step} (epoch "
+                  f"{start_epoch}, step {next_step % steps_per_epoch}; "
+                  f"restore {ckpt.restore_seconds:.3f}s)")
     if args.cache_budget:
         print(f"[gnn] feature cache: policy={args.cache_policy} "
               f"budget={args.cache_budget}/worker "
               f"(filled {tr.store.cache_sizes.tolist()})")
     sms: "list[StepMetrics]" = []
     est = None
+    gstep = next_step
     try:
-        for epoch in range(args.epochs):
+        for epoch in range(start_epoch, args.epochs):
             t1 = time.perf_counter()
             tr.set_epoch(epoch)
             epoch_sms = []
-            for step in range(steps_per_epoch):
+            first = gstep - epoch * steps_per_epoch
+            for step in range(first, steps_per_epoch):
                 sm = tr.train_step()
                 epoch_sms.append(sm)
-                print(f"[gnn]   step {len(sms) + step:4d} loss "
+                print(f"[gnn]   step {gstep:4d} loss "
                       f"{sm.loss:.4f} wall {sm.step_wall_host:.4f}s: sample "
                       f"{sm.sample_time_host:.4f} fetch "
                       f"{sm.fetch_time_host:.4f} transfer "
                       f"{sm.transfer_time_host:.4f} compute "
                       f"{sm.compute_time_host:.4f} wait "
                       f"{sm.queue_wait_host:.4f} (s, host clock, {device})")
+                if ckpt is not None:
+                    ckpt.save(gstep, tr, {"epoch": epoch, "step": step})
+                gstep += 1
             sms += epoch_sms
             est = minibatch_step(
                 sm.input_vertices, sm.remote_vertices, sm.edges,
@@ -343,14 +527,18 @@ def _minibatch(args, device, lr, g, spec, feats, labels,
     return TrainRun(graph=g, spec=spec, assignment=assignment, trainer=tr,
                     estimate=est, losses=[s.loss for s in sms],
                     step_seconds=[s.step_wall_host for s in sms],
-                    peak_memory=_peak(device), step_metrics=sms)
+                    peak_memory=_peak(device), step_metrics=sms,
+                    start_step=next_step)
 
 
 def main(argv: Optional[list] = None) -> None:
     # before anything starts CUDA; an allocator config of the caller's own
     # stands
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", TRAIN_ALLOC_CONF)
-    run(argv)
+    try:
+        run(argv)
+    except WorkerCrash:  # `run` printed the FATAL line and the hint
+        sys.exit(CRASH_EXIT)
 
 
 if __name__ == "__main__":

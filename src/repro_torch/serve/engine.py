@@ -1,6 +1,6 @@
 """The serving engine: embedding store + final-layer recompute, simulated QPS.
 
-Twin of repro/serve/engine.py (without the fault plan). A request for
+Twin of repro/serve/engine.py, without its tracer spans. A request for
 vertex v's prediction is answered in three phases, priced on the paper's
 cluster by `core.cost_model.serve_request`:
 
@@ -14,7 +14,10 @@ cluster by `core.cost_model.serve_request`:
 `run_serving_sim` drives Poisson arrivals through per-worker queues; every
 worker serves its micro-batches serially at the cost model's service time.
 Latencies are modeled for the paper's cluster; the host compute time is
-measured on the device the engine runs on.
+measured on the device the engine runs on. A fault plan's `worker-death`
+kills one worker at a virtual time; its unanswered requests fail over to
+the survivors (fault/recovery.py `failover_assignment`) and every request
+is still answered.
 """
 
 from __future__ import annotations
@@ -153,6 +156,13 @@ class ServingReport:
     # and its served logits
     served_ids: Optional[np.ndarray] = None   # [n]
     logits: Optional[np.ndarray] = None       # [n, C]
+    # fault-injection outcome (worker-death): every request is still
+    # answered; the rerouted ones pay the detection delay + a colder store
+    arrival: Optional[np.ndarray] = None      # [n] original arrival times
+    fault_time: Optional[float] = None        # virtual death time tau
+    dead_worker: int = -1
+    rerouted: int = 0                         # requests failed over
+    transition_end: Optional[float] = None    # last rerouted completion
 
     # -------------------------------------------------------------- metrics
     def _lat(self, worker: Optional[int]) -> np.ndarray:
@@ -194,6 +204,25 @@ class ServingReport:
             for w in range(self.k)
         ]
 
+    def transition_stats(self) -> Optional[dict]:
+        """Latency of the degraded window: requests COMPLETING between the
+        death (tau) and the last rerouted request's completion. None when no
+        fault was injected."""
+        if self.fault_time is None:
+            return None
+        done = self.arrival + self.latency
+        win = (done >= self.fault_time) & (done <= self.transition_end)
+        lat = self.latency[win]
+        return {
+            "fault_time": float(self.fault_time),
+            "transition_end": float(self.transition_end),
+            "window": float(self.transition_end - self.fault_time),
+            "requests": int(win.sum()),
+            "rerouted": int(self.rerouted),
+            "p50": float(np.percentile(lat, 50)) if lat.size else float("nan"),
+            "p99": float(np.percentile(lat, 99)) if lat.size else float("nan"),
+        }
+
 
 def run_serving_sim(
     engines: list,
@@ -203,6 +232,9 @@ def run_serving_sim(
     arrivals: np.ndarray,
     *,
     cluster: ClusterSpec = PAPER_CLUSTER,
+    fault_plan=None,
+    failover_owner: Optional[np.ndarray] = None,
+    detect_delay: float = 0.0,
 ) -> ServingReport:
     """Drive a request trace through per-worker queues.
 
@@ -211,34 +243,55 @@ def run_serving_sim(
     vertex. Every worker batches greedily (`plan_dispatch`) and serves
     serially at the cost model's service time; modeled per-request latency
     = (dispatch wait) + (batch service time). Host compute is measured too
-    and reported separately."""
+    and reported separately.
+
+    Fault injection: a `fault_plan` with a `worker-death` event kills one
+    worker at virtual time tau. Its unanswered requests fail over to
+    `failover_owner` (see fault/recovery.failover_assignment) after
+    `detect_delay` seconds; every request is STILL answered — the rerouted
+    ones pay the delay plus the survivor's colder locality, which is the
+    degraded-window latency `transition_stats()` reports. Latency and queue
+    wait stay measured against the ORIGINAL arrival, so the per-request
+    closure invariant (latency == queue_wait + service) survives the fault.
+    The dead worker is drained first (up to tau), then the survivors in
+    worker order, as the reference serves them.
+    """
     request_ids = np.asarray(request_ids, dtype=np.int64)
     arrivals = np.asarray(arrivals, dtype=np.float64)
     k = len(engines)
     latencies, lat_worker, queue_waits, served_ids, logits = [], [], [], [], []
+    arrival_rec: list[np.ndarray] = []
+    reroute_done: list[np.ndarray] = []  # completion times of rerouted reqs
     host_times, service_times, bsizes, bworkers, bmiss = [], [], [], [], []
     all_stats: list[FetchStats] = []
 
-    route = np.asarray(owner)[request_ids] if request_ids.size else \
-        np.zeros(0, np.int64)
-    for w in range(k):
-        sel = route == w
-        ids_w, arr_w = request_ids[sel], arrivals[sel]
+    def _drain(w, ids_w, eff_w, orig_w, flag_w, stop_at=None):
+        """Serve worker w's stream serially; dispatch is planned from the
+        EFFECTIVE arrivals, latency measured from the ORIGINAL ones.
+        Returns the index the worker died at (== len when it drained)."""
         t_free = 0.0
         i = 0
         while i < ids_w.shape[0]:
-            take, t_dispatch = batchers[w].dispatch(arr_w, i, t_free)
+            take, t_dispatch = batchers[w].dispatch(eff_w, i, t_free)
+            if stop_at is not None and t_dispatch >= stop_at:
+                break  # the worker is dead before this batch dispatches
             mb = MicroBatch(
                 ids=ids_w[i:i + take],
-                arrivals=arr_w[i:i + take],
+                arrivals=orig_w[i:i + take],
                 dispatch_time=t_dispatch,
                 batch=batchers[w].build_mfg(ids_w[i:i + take]),
             )
             out, stats, host_s = engines[w].answer(mb.batch)
             est = engines[w].estimate(mb.batch, stats, cluster)
             t_done = t_dispatch + est.service_time
+            if stop_at is not None and t_done > stop_at:
+                break  # died mid-batch: nothing of it was answered
             latencies.append(t_done - mb.arrivals)
             queue_waits.append(t_dispatch - mb.arrivals)
+            arrival_rec.append(mb.arrivals)
+            if flag_w is not None and flag_w[i:i + take].any():
+                reroute_done.append(
+                    np.full(int(flag_w[i:i + take].sum()), t_done))
             lat_worker.append(np.full(take, w, dtype=np.int64))
             served_ids.append(mb.ids)
             logits.append(out[:take])
@@ -250,6 +303,73 @@ def run_serving_sim(
             all_stats.append(stats)
             t_free = t_done
             i += take
+        return i
+
+    # ----------------------------------------------------- fault resolution
+    route = np.asarray(owner)[request_ids] if request_ids.size else \
+        np.zeros(0, np.int64)
+    death_ev, dead, fault_time = None, -1, None
+    if fault_plan is not None:
+        deaths = fault_plan.pending("worker-death")
+        if deaths:
+            death_ev = deaths[0]
+            dead = fault_plan.resolve_worker(death_ev, k)
+            fault_time = (float(death_ev.at) if death_ev.at >= 0 else
+                          0.5 * float(arrivals.max() if arrivals.size else 0.0))
+            if failover_owner is None:
+                raise ValueError(
+                    "worker-death injection requires failover_owner "
+                    "(see fault.recovery.failover_assignment)")
+
+    rerouted_n = 0
+    extra = {w: None for w in range(k)}  # survivor -> rerouted (ids, orig)
+    if death_ev is not None:
+        sel = route == dead
+        ids_d, orig_d = request_ids[sel], arrivals[sel]
+        served = _drain(dead, ids_d, orig_d, orig_d, None,
+                        stop_at=fault_time)
+        fault_plan.fire(death_ev, worker=int(dead), at=fault_time)
+        left_ids, left_orig = ids_d[served:], orig_d[served:]
+        rerouted_n = int(left_ids.shape[0])
+        new_owner = np.asarray(failover_owner)
+        targets = new_owner[left_ids]
+        if (targets == dead).any():
+            raise ValueError(
+                f"failover_owner still routes to dead worker {dead}")
+        for w in range(k):
+            pick = targets == w
+            if pick.any():
+                extra[w] = (left_ids[pick], left_orig[pick])
+
+    # ------------------------------------------------------------ the drain
+    for w in range(k):
+        if w == dead:
+            continue
+        sel = route == w
+        ids_w, orig_w = request_ids[sel], arrivals[sel]
+        flag_w = None
+        if extra[w] is not None:
+            re_ids, re_orig = extra[w]
+            # rerouted requests become visible to the survivor only after
+            # the death is detected
+            re_eff = np.maximum(re_orig, fault_time + detect_delay)
+            ids_w = np.concatenate([ids_w, re_ids])
+            eff_w = np.concatenate([orig_w, re_eff])
+            orig_w = np.concatenate([orig_w, re_orig])
+            flag_w = np.zeros(ids_w.shape[0], dtype=bool)
+            flag_w[-re_ids.shape[0]:] = True
+            order = np.argsort(eff_w, kind="stable")
+            ids_w, eff_w = ids_w[order], eff_w[order]
+            orig_w, flag_w = orig_w[order], flag_w[order]
+        else:
+            eff_w = orig_w
+        _drain(w, ids_w, eff_w, orig_w, flag_w)
+
+    transition_end = None
+    if death_ev is not None:
+        transition_end = (float(np.max(np.concatenate(reroute_done)))
+                          if reroute_done else float(fault_time))
+        fault_plan.mark_handled(death_ev)  # every rerouted request answered
 
     def cat(parts, empty):
         return np.concatenate(parts) if parts else empty
@@ -270,6 +390,11 @@ def run_serving_sim(
         batch_miss=np.asarray(bmiss, dtype=np.int64),
         served_ids=cat(served_ids, np.zeros(0, np.int64)),
         logits=cat(logits, None),
+        arrival=cat(arrival_rec, np.zeros(0)),
+        fault_time=fault_time,
+        dead_worker=dead,
+        rerouted=rerouted_n,
+        transition_end=transition_end,
     )
 
 

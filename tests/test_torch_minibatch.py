@@ -34,6 +34,7 @@ from repro.core.vertex_partition import partition_vertices  # noqa: E402
 from repro.gnn import minibatch as j_mb  # noqa: E402
 from repro.gnn.models import GNNSpec as JSpec  # noqa: E402
 from repro_torch.core.graph import paper_graph  # noqa: E402
+from repro_torch.fault import FaultInjector, FaultPlan  # noqa: E402
 from repro_torch.gnn import minibatch as t_mb  # noqa: E402
 from repro_torch.gnn.models import GNNSpec as TSpec  # noqa: E402
 from repro_torch.launch import gnn_train  # noqa: E402
@@ -332,10 +333,17 @@ def test_loss_identical_across_cache_policies(data):
 
 
 def test_unported_options_are_refused(data):
-    # the codecs are ported: int8 builds, and its store ships int8 rows
+    """Nothing of `build` is refused now: the codecs are ported (int8
+    builds, and its store ships int8 rows), and so is fault injection (an
+    injector reaches the batch preparer, which sets its worker count)."""
     assert _port(data, codec="int8").store.codec.name == "int8"
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        _port(data, injector=object())
+    injector = FaultInjector(FaultPlan([]))
+    tr = _port(data, injector=injector)
+    try:
+        assert tr.engine.preparer.injector is injector and injector.k == 4
+        assert tr.train_step().loss > 0
+    finally:
+        tr.close()
 
 
 # ------------------------------------------------------- (e) repeatable step

@@ -19,9 +19,10 @@ the port's backends to the reference's tiled trainer):
       final parameters at rtol=atol=2e-4
   (g) the `gnn_train` CLI trains on the CPU with falling losses, and
       raises at once without `--device cpu` when no GPU is visible
-  (h) the reference's unported flags are refused (`--regime minibatch` is
-      tests/test_torch_minibatch.py's, `--sync-mode dense|ring`
-      tests/test_torch_sync.py's)
+  (h) the checkpoint and fault flags run (tests/test_torch_fault.py holds
+      what they do); the reference's unported flags are refused
+      (`--regime minibatch` is tests/test_torch_minibatch.py's,
+      `--sync-mode dense|ring` tests/test_torch_sync.py's)
 """
 
 import os
@@ -46,6 +47,7 @@ from repro.kernels import ops as j_ops  # noqa: E402
 from repro.optim import adam_init as j_adam_init  # noqa: E402
 from repro.optim import adam_update as j_adam_update  # noqa: E402
 from repro_torch.core.graph import paper_graph  # noqa: E402
+from repro_torch.fault import WorkerCrash  # noqa: E402
 from repro_torch.gnn import fullbatch as t_fb  # noqa: E402
 from repro_torch.gnn import minibatch as t_mb  # noqa: E402
 from repro_torch.gnn import models as tm  # noqa: E402
@@ -422,18 +424,36 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
         gnn_train.run(TINY)
 
 
-@pytest.mark.parametrize("argv", [["--resume"], ["--ckpt-dir", "x"],
+@pytest.mark.parametrize("argv", [["--resume"], ["--ckpt-dir", "DIR"],
                                   ["--trace", "x"], ["--out-json", "x"],
-                                  ["--inject-fault", "x"]])
-def test_cli_refuses_unported_flags(argv):
-    """Flags the port has not ported are not parsed; those of the reference
-    CLI (checkpoints, traces, study rows) are refused by `run` naming their
-    ROADMAP item before any work starts."""
-    with pytest.raises(SystemExit):
-        gnn_train.parser().parse_args(TINY + argv)
+                                  ["--inject-fault", "crash@step:1"]])
+def test_cli_refuses_unported_flags(argv, tmp_path, capsys):
+    """The checkpoint and fault flags parse and run on the CPU (an
+    injected crash raises `WorkerCrash` from `run` after the FATAL line);
+    the reference CLI's flags the port has not ported (traces, study rows)
+    are not parsed, and `run` refuses them naming their ROADMAP item before
+    any work starts."""
+    argv = [str(tmp_path / "ck") if a == "DIR" else a for a in argv]
     if argv[0] in gnn_train.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="queue 1, item [67]"):
+        with pytest.raises(SystemExit):
+            gnn_train.parser().parse_args(TINY + argv)
+        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
             gnn_train.run(TINY + argv + ["--device", "cpu"])
+        return
+    gnn_train.parser().parse_args(TINY + argv)
+    cli = TINY + argv + ["--device", "cpu", "--epochs", "2"]
+    if argv[0] == "--inject-fault":
+        with pytest.raises(WorkerCrash):
+            gnn_train.run(cli)
+        assert "FATAL: injected worker crash at step 1" in \
+            capsys.readouterr().out
+        return
+    out = gnn_train.run(cli)
+    assert len(out.losses) == 2 and out.start_step == 0
+    assert (out.checkpoints is not None) == (argv[0] == "--ckpt-dir")
+    if out.checkpoints is not None:
+        assert out.checkpoints.nbytes > 0
+        assert len(out.checkpoints.save_seconds) == 2
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--out-json"])
