@@ -89,10 +89,13 @@ ends the script with a traceback and a non-zero exit:
                check shown rejecting a trajectory shifted by one step),
                dense == halo and ring == halo; per-step losses, warm step
                seconds (median of steps 2-5), peak device memory and
-               launches per step; every tiled path (halo, dense, ring)
-               repeats its 3-step losses and final parameters bit for bit
-               (asserted; scatter paths: reported); small runs (halo,
-               dense, ring) on the card against the same runs on the CPU;
+               launches per step; every path (halo, dense, ring; tiled
+               and scatter: the step runs under `minibatch.repeatable_step`)
+               repeats its 3-step losses and final parameters bit for bit;
+               per path, one warm step with and without the repeatable
+               step, A B B A on fixed state (`repeatable_cost`); small
+               runs (halo, dense, ring) on the card against the same runs
+               on the CPU;
                the max aggregate's backward on the card (kernel max and tie
                count) bit for bit against its plain version on an input
                with ties.
@@ -172,17 +175,33 @@ ends the script with a traceback and a non-zero exit:
                rescales' re-partition seconds, first step after and
                modeled `recovery_time`, the elastic run's peak and the
                serving transition window's modeled p50 / p99.
+ 11. trace   — observability (obs/, `--trace`, `gnn_trace`), each traced
+               run held to its untraced twin of this call: `gnn_train
+               --trace` at phase 7's GAT tiled halo CLI run and at phase
+               8's serial mini-batch CLI run (losses and final parameters
+               bit for bit), `gnn_serve --trace` at phase 4's GAT tiled run
+               (embeddings and served logits bit for bit), and `gnn_trace
+               --smoke --device cuda` (exit 0, every check ok). Every
+               timeline loads through `load_trace`, every reconcile check
+               is ok with the byte checks exact, and the launches are
+               phases 4, 7 and 8's. Then the tracer's cost on the step
+               wall, untraced and traced in the order A B B A on fixed
+               state, full batch (GAT tiled halo) and mini batch (GAT tiled
+               serial). Prints event counts, timeline bytes, the phase
+               means and the phase's seconds; the timelines go to
+               chiprun_out/trace_*.json.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phases 4 and 7-10 made at
-that shape (phases 7-10 fail if they launched the kernel at a shape phase
+entry per shape of phase 5 with the launches phases 4 and 7-11 made at
+that shape (phases 7-11 fail if they launched the kernel at a shape phase
 5 did not time)
 and one per (attention kernel, shape, dtype) of phase 6, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
-phase 10's under "robust") to chiprun_out/chip_smoke_train.json.
+phase 10's under "robust", phase 11's under "trace") to
+chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
 each over a GAT tiled full-batch training step at the training phase's
@@ -679,6 +698,8 @@ def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict, dict]:
         main_launches[model] = launches
         emb, logits = tiled.embeddings, tiled.report.logits
         ids = tiled.report.served_ids
+        if model == "gat":  # phase 11's untraced twin
+            ORACLES["serve gat tiled"] = (emb, logits)
         del tiled
         plain, launches, _ = serve_once(
             torch, spmm, gnn_serve,
@@ -867,6 +888,34 @@ def repeat_check(torch, spmm, make, losses, what) -> dict:
     return out
 
 
+def repeatable_cost(torch, make, what) -> dict:
+    """What the full-batch step's deterministic algorithms cost: fresh
+    trainers from `make` (the same initial state) take one warm step, then
+    one timed step, with the repeatable step (`train_step`) and without it
+    (`_step`, the same body outside the mode), in the order A B B A (phase
+    8's). The timed steps with it must give one loss; without it, whether
+    they do is reported."""
+    seconds, losses = {True: [], False: []}, {True: [], False: []}
+    for on in (True, False, False, True):
+        tr = make()
+        step = tr.train_step if on else tr._step
+        step()
+        t0 = time.perf_counter()
+        losses[on].append(step())  # the loss is read: the step has ended
+        seconds[on].append(time.perf_counter() - t0)
+        del tr
+    assert losses[True][0] == losses[True][1], (what, losses)
+    repeats = losses[False][0] == losses[False][1]
+    ratio = float(np.mean(seconds[True]) / np.mean(seconds[False]))
+    say(f"[train] {what}: one warm step with the repeatable step "
+        f"{seconds[True]} s, without {seconds[False]} s (A B B A, fixed "
+        f"state), ratio {ratio:.4f}; without it two runs "
+        f"{'repeat bit for bit' if repeats else 'differ'}")
+    return {"warm_step_seconds_repeatable": seconds[True],
+            "warm_step_seconds_plain": seconds[False], "ratio": ratio,
+            "plain_repeats": repeats}
+
+
 def ring_shapes(torch, gnn_train, fullbatch, tiling, seen) -> None:
     """The ring book of phase 7 built before phase 5, on the host: its
     first stage's folded layout (the k chunks (p, 0), k * R rows) joins
@@ -908,11 +957,11 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
     `expected_launches` (ring: k a layer's aggregate, at k * R rows),
     scatter runs to none; within LOSS_TOL at every step: tiled == scatter
     (halo and ring), dense == halo and ring == halo (tiled and scatter);
-    every tiled path repeats its losses and final parameters bit for bit
-    over 3 steps (scatter paths: reported); the card == the CPU at a small
-    size under halo, dense and ring; and the max backward on the card ==
-    its plain version. Returns the results and the launches of each tiled
-    run."""
+    every path, scatter included, repeats its losses and final parameters
+    bit for bit over 3 steps, and its repeatable step's cost is timed
+    (`repeatable_cost`); the card == the CPU at a small size under halo,
+    dense and ring; and the max backward on the card == its plain version.
+    Returns the results and the launches of each tiled run."""
     runs, main_launches = {}, {}
 
     def record(key, tr, losses, seconds, launches, peak, wall):
@@ -985,26 +1034,25 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
             del tr
 
     def repeats(base, sync, keys):
+        # every path, scatter included: the step runs under the
+        # deterministic algorithms (`minibatch.repeatable_step`)
         specs = specs_of(base)
         for key in keys:
             res = runs[(sync,) + key]
-            if key[1] == "tiled":
-                res.update(repeat_check(
-                    torch, spmm, lambda: fresh(base, specs[key], sync),
-                    res["losses"], f"{sync} {key[0]} {key[1]}"))
-                assert res["rerun_losses_bitwise_equal"] and \
-                    res["rerun_params_bitwise_equal"], (
-                        f"{sync} {key}: a tiled full-batch path does not "
-                        "repeat bit for bit")
-            else:  # reported: the scatter backend's index_add_ is atomic
-                again = train_steps(torch, spmm,
-                                    fresh(base, specs[key], sync),
-                                    REPEAT_STEPS)[0]
-                same = again == res["losses"][:REPEAT_STEPS]
-                res["rerun_losses_bitwise_equal"] = same
-                say(f"[train] {sync} {key[0]} {key[1]}: a {REPEAT_STEPS}-"
-                    f"step rerun {'repeats' if same else 'differs'} "
-                    f"(reported): {again}")
+            res.update(repeat_check(
+                torch, spmm, lambda: fresh(base, specs[key], sync),
+                res["losses"], f"{sync} {key[0]} {key[1]}"))
+            assert res["rerun_losses_bitwise_equal"] and \
+                res["rerun_params_bitwise_equal"], (
+                    f"{sync} {key}: a full-batch path does not repeat bit "
+                    "for bit")
+
+    def costs(base, sync, keys):
+        specs = specs_of(base)
+        for key in keys:
+            runs[(sync,) + key]["repeatable_cost"] = repeatable_cost(
+                torch, lambda: fresh(base, specs[key], sync),
+                f"{sync} {key[0]} {key[1]}")
 
     def hold(a, b, what):
         diff = hold_losses(runs[a]["losses"], runs[b]["losses"], what)
@@ -1034,6 +1082,8 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
         raise AssertionError("the loss check passes a shifted trajectory")
     repeats(base, "halo", tiled + rest[::2])
     repeats(base, "dense", tiled)
+    costs(base, "halo", tiled + rest[::2])
+    costs(base, "dense", tiled)
     del base
     torch.cuda.empty_cache()
 
@@ -1046,6 +1096,7 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
             hold(("ring", model, backend), ("halo", model, backend),
                  f"ring {model} {backend} vs halo")
     repeats(ring, "ring", tiled + rest[::2])
+    costs(ring, "ring", tiled + rest[::2])
     del ring
     torch.cuda.empty_cache()
 
@@ -1264,6 +1315,7 @@ def phase_minibatch(torch, spmm, ref, tiling, gnn_train, minibatch, models,
         run = gnn_train.run(MB_WIDTH + ["--model", "gat",
                                         "--agg-backend", "tiled"])
     base = run.trainer
+    ORACLES["minibatch gat tiled"] = _param_tensors(base)  # phase 11's twin
     assert len(run.step_metrics) >= MB_STEPS and run.estimate.step_time > 0
     record(("gat", "tiled", "serial"), base.spec, base.plan,
            run.step_metrics, launches, run.peak_memory,
@@ -1937,6 +1989,232 @@ def phase_robust(torch, spmm, tiling, gnn_train, gnn_serve, models, optim,
     return results, main_launches
 
 
+# ---------------------------------------------------------------- phase 11
+# the observability phase: where its timelines go (chiprun_out/ merges back)
+TRACE_DIR = ROOT / "chiprun_out"
+
+
+def _trace_size(path, what) -> dict:
+    from repro_torch.obs import load_trace
+
+    payload = load_trace(str(path))
+    n = len(payload["traceEvents"])
+    size = Path(path).stat().st_size
+    say(f"[trace] {what}: {Path(path).name} loads through load_trace, {n} "
+        f"trace events, {size} bytes")
+    return {"trace_events": n, "trace_bytes": size}
+
+
+def _held_report(report, path, what) -> dict:
+    """Every check of a reconcile report ok, every byte check exact but
+    the gradient all-reduce's (the reference prices it at model
+    granularity, 25%), and the timeline at `path` through `load_trace`.
+    Returns the timeline's sizes and each check's measured / predicted."""
+    bad = [(c.quantity, c.level, c.message) for c in report.checks
+           if c.level != "ok"]
+    assert report.checks and not bad, f"{what}: reconcile {bad}"
+    inexact = [c.quantity for c in report.checks
+               if c.unit == "bytes" and c.tol_rel != 0.0
+               and c.quantity != "allreduce.wire_bytes"]
+    assert not inexact, f"{what}: byte checks with a tolerance {inexact}"
+    return {**_trace_size(path, what), "checks": {
+        c.quantity: [c.measured, c.predicted] for c in report.checks}}
+
+
+def _same_tensors(torch, got, want, what) -> None:
+    assert len(got) == len(want) > 0 and all(
+        torch.equal(a, b) for a, b in zip(got, want)), (
+            f"{what}: final parameters differ from the untraced twin")
+
+
+def trace_overhead(torch, obs, make, step, what) -> dict:
+    """The tracer's cost on the step wall: fresh trainers from `make` (one
+    initial state) take a warm step, then a timed one, untraced and traced
+    (a fresh enabled tracer installed for both steps), in the order A B B
+    A. `step(tr)` runs one step and returns (loss, wall seconds). The four
+    timed losses must be one loss."""
+    seconds, losses, events = {False: [], True: []}, [], []
+    for traced in (False, True, True, False):
+        tr = make()
+        with obs.tracing() if traced else contextlib.nullcontext() as tracer:
+            step(tr)
+            loss, wall = step(tr)
+            if traced:
+                events.append(len(tracer))
+        getattr(tr, "close", lambda: None)()
+        losses.append(loss)
+        seconds[traced].append(wall)
+        del tr
+    assert len(set(losses)) == 1, f"{what}: traced != untraced {losses}"
+    ratio = float(np.mean(seconds[True]) / np.mean(seconds[False]))
+    say(f"[trace] {what}: warm step untraced {seconds[False]} s, traced "
+        f"{seconds[True]} s (A B B A, fixed state), ratio {ratio:.4f}, "
+        f"{events} events over two traced steps; the losses bit for bit "
+        f"equal")
+    return {"untraced_seconds": seconds[False],
+            "traced_seconds": seconds[True], "ratio": ratio,
+            "events_two_steps": events}
+
+
+def phase_trace(torch, spmm, tiling, gnn_train, gnn_serve, gnn_trace, obs,
+                fullbatch, models, optim, train) -> tuple[dict, dict]:
+    """Observability (obs/, `--trace`, `gnn_trace`) at phases 4, 7 and 8's
+    configurations, each traced run held to its untraced twin of this
+    call: `gnn_train --trace` GAT tiled halo (phase 7's CLI run) and the
+    serial mini-batch CLI run (phase 8's), losses and final parameters bit
+    for bit; `gnn_serve --trace` GAT tiled (phase 4's run), embeddings and
+    served logits bit for bit; `gnn_trace --smoke --device cuda` exits 0.
+    Every timeline loads through `load_trace`, every reconcile check is ok
+    (byte checks exact), the launches are phases 4, 7 and 8's; then the
+    tracer's cost on the step wall, A B B A, full batch and mini batch.
+    Returns the results and the launches of each run."""
+    t_phase = time.perf_counter()
+    TRACE_DIR.mkdir(exist_ok=True)
+    results, main_launches = {}, {}
+
+    # full batch: phase 7's CLI run of GAT tiled halo, traced
+    path = TRACE_DIR / "trace_fullbatch.json"
+    t0 = time.perf_counter()
+    with recording(spmm) as launches:
+        run = gnn_train.run(TRAIN_WIDTH + ["--model", "gat", "--agg-backend",
+                                           "tiled", "--trace", str(path)])
+    wall = time.perf_counter() - t0
+    twin = train["halo gat tiled"]
+    assert run.losses == twin["losses"], (run.losses, twin["losses"])
+    _same_tensors(torch, _param_tensors(run.trainer),
+                  ORACLES["halo gat tiled"][0], "traced full batch")
+    assert _by_combiner_width(launches) == expected_launches(
+        run.trainer.spec, TRAIN_STEPS), launches
+    main_launches["trace gnn_train halo gat"] = launches
+    res = _held_report(run.trace_report, path,
+                       "gnn_train --trace (halo gat tiled)")
+    res.update(tracer_events=len(run.tracer), wall_seconds=wall,
+               step_seconds=run.step_seconds)
+    results["fullbatch halo gat tiled"] = res
+    say(f"[trace] gnn_train --trace halo gat tiled: losses and final "
+        f"parameters == phase 7's bit for bit, {len(run.tracer)} tracer "
+        f"events, reconcile {run.trace_report.counts}, step seconds "
+        f"{[round(t, 4) for t in run.step_seconds]} (phase 7: "
+        f"{[round(t, 4) for t in twin['step_seconds']]}), wall {wall:.1f}s")
+    base = run.trainer
+    del run
+
+    def fb_fresh():
+        params = models.init_params(base.spec, seed=0,
+                                    device=base.blocks.x.device)
+        return fullbatch.FullBatchTrainer(
+            spec=base.spec, book=base.book, blocks=base.blocks,
+            sync_mode="halo", params=params,
+            opt_state=optim.adam_init(params), lr=base.lr)
+
+    def fb_step(tr):
+        t0 = time.perf_counter()
+        loss = tr.train_step()  # the loss is read: the step has ended
+        return loss, time.perf_counter() - t0
+
+    results["fullbatch overhead"] = trace_overhead(
+        torch, obs, fb_fresh, fb_step, "full batch halo gat tiled")
+    del base
+    torch.cuda.empty_cache()
+
+    # mini batch: phase 8's serial CLI run of GAT tiled, traced
+    path = TRACE_DIR / "trace_minibatch.json"
+    t0 = time.perf_counter()
+    with recording(spmm) as launches:
+        run = gnn_train.run(MB_WIDTH + ["--model", "gat", "--agg-backend",
+                                        "tiled", "--trace", str(path)])
+    wall = time.perf_counter() - t0
+    twin = train["minibatch"]["gat tiled serial"]
+    assert run.losses == twin["losses"], (run.losses, twin["losses"])
+    _same_tensors(torch, _param_tensors(run.trainer),
+                  ORACLES["minibatch gat tiled"], "traced mini batch")
+    mb = run.trainer
+    assert dict(launches) == expected_minibatch_launches(
+        mb.spec, mb.plan, tiling, 4, len(run.losses)), launches
+    main_launches["trace gnn_train minibatch gat"] = launches
+    res = _held_report(run.trace_report, path,
+                       "gnn_train --trace (mini batch gat tiled serial)")
+    spans = obs.span_summary(run.tracer.spans())
+    res.update(tracer_events=len(run.tracer), wall_seconds=wall,
+               phase_means=obs.phase_means(run.step_metrics),
+               span_means={k: v["mean_s"] for k, v in spans.items()})
+    results["minibatch gat tiled serial"] = res
+    say(f"[trace] gnn_train --trace minibatch gat tiled serial: losses and "
+        f"final parameters == phase 8's bit for bit, {len(run.tracer)} "
+        f"tracer events, reconcile {run.trace_report.counts}, phase means "
+        f"(s) { {k: round(v, 4) for k, v in res['phase_means'].items()} }, "
+        f"span means (s) "
+        f"{ {k: round(v, 4) for k, v in res['span_means'].items()} }, wall "
+        f"{wall:.1f}s")
+    del run
+
+    def mb_fresh():
+        params = models.init_params(mb.spec, seed=0, device=mb.device)
+        return dataclasses.replace(
+            mb, params=params, opt_state=optim.adam_init(params),
+            overlap=False)
+
+    def mb_step(tr):
+        sm = tr.train_step()
+        return sm.loss, sm.step_wall_host
+
+    results["minibatch overhead"] = trace_overhead(
+        torch, obs, mb_fresh, mb_step, "mini batch gat tiled serial")
+    del mb
+    torch.cuda.empty_cache()
+
+    # serving: phase 4's GAT tiled run, traced
+    path = TRACE_DIR / "trace_serve.json"
+    t0 = time.perf_counter()
+    with recording(spmm) as launches, torch.inference_mode():
+        out = gnn_serve.run(FULL_WIDTH + ["--model", "gat", "--agg-backend",
+                                          "tiled", "--trace", str(path)])
+    wall = time.perf_counter() - t0
+    emb, logits = ORACLES["serve gat tiled"]
+    for li, (a, b) in enumerate(zip(out.embeddings, emb)):
+        np.testing.assert_array_equal(a, b, err_msg=f"traced layer {li}")
+    np.testing.assert_array_equal(out.report.logits, logits,
+                                  err_msg="traced served logits")
+    assert _launched(launches, "sum") > 0 and _launched(launches, "max") > 0
+    main_launches["trace gnn_serve gat"] = launches
+    res = _held_report(out.trace_report, path,
+                       "gnn_serve --trace (gat tiled)")
+    res.update(tracer_events=len(out.tracer), wall_seconds=wall,
+               request_breakdown=obs.request_breakdown(
+                   out.report.latency, out.report.queue_wait))
+    results["serve gat tiled"] = res
+    say(f"[trace] gnn_serve --trace gat tiled: embeddings and served logits "
+        f"== phase 4's bit for bit, {len(out.tracer)} tracer events, "
+        f"reconcile {out.trace_report.counts}, wall {wall:.1f}s")
+    del out
+
+    # the four reconciled programs of gnn_trace, on the card
+    path = TRACE_DIR / "trace_gnn_trace.json"
+    report = TRACE_DIR / "trace_gnn_trace.report.json"
+    t0 = time.perf_counter()
+    with recording(spmm) as launches:
+        code = gnn_trace.main(["--smoke", "--device", "cuda", "--out-trace",
+                               str(path), "--out-json", str(report)])
+    wall = time.perf_counter() - t0
+    rep = json.loads(report.read_text())
+    assert code == 0 and rep["exit_code"] == 0, rep["counts"]
+    assert rep["counts"]["warn"] == rep["counts"]["error"] == 0, rep["counts"]
+    assert set(rep["programs"]) == {"fullbatch-halo", "fullbatch-ring",
+                                    "minibatch", "serve"}
+    main_launches["trace gnn_trace --smoke"] = launches
+    res = _trace_size(path, "gnn_trace --smoke --device cuda")
+    res.update(counts=rep["counts"], wall_seconds=wall, checks={
+        f"{c['program']} {c['quantity']}": [c["measured"], c["predicted"]]
+        for c in rep["checks"]})
+    results["gnn_trace smoke"] = res
+    say(f"[trace] gnn_trace --smoke --device cuda: exit 0, "
+        f"{rep['counts']}, wall {wall:.1f}s")
+
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[trace] phase 11 took {results['phase_seconds']:.1f}s")
+    return results, main_launches
+
+
 # ---------------------------------------------------------------- phase 5
 def phase_shapes(torch, spmm, seen) -> dict:
     """The kernel at every shape phase 4 launched it at, on that launch's
@@ -2517,9 +2795,10 @@ def main() -> int:
     from repro_torch import optim
     from repro_torch.core import wire
     from repro_torch.core.vertex_partition import partition_vertices
+    from repro_torch import obs
     from repro_torch.gnn import fullbatch, minibatch, models
     from repro_torch.kernels import ref
-    from repro_torch.launch import gnn_serve, gnn_train
+    from repro_torch.launch import gnn_serve, gnn_trace, gnn_train
 
     resolve_device("cuda")
     t_start = time.perf_counter()
@@ -2561,8 +2840,12 @@ def main() -> int:
         torch, spmm, tiling, gnn_train, gnn_serve, models, optim, train,
         elastic_rows)
     say(f"[time] robust {time.perf_counter() - t_start:.1f}s")
+    train["trace"], trace_launches = phase_trace(
+        torch, spmm, tiling, gnn_train, gnn_serve, gnn_trace, obs, fullbatch,
+        models, optim, train)
+    say(f"[time] trace {time.perf_counter() - t_start:.1f}s")
     for run, n in {**train_launches, **mb_launches, **codec_launches,
-                   **robust_launches}.items():
+                   **robust_launches, **trace_launches}.items():
         assert set(n) <= set(shapes), (
             f"{run} launched the kernel at shapes phase 5 did not time: "
             f"{sorted(set(n) - set(shapes))}")
@@ -2570,6 +2853,7 @@ def main() -> int:
     launches.update(mb_launches)
     launches.update(codec_launches)
     launches.update(robust_launches)
+    launches.update(trace_launches)
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -2582,7 +2866,7 @@ def main() -> int:
             # launches at this shape over the GAT and SAGE tiled serving,
             # full-batch and mini-batch training runs, with and without a
             # lossy codec, crashed, resumed, retried, rescaled or failed
-            # over
+            # over, traced
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "E_tiled": row["E_tiled"],

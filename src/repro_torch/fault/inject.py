@@ -1,7 +1,8 @@
 """Fault injection hooks + retry-with-backoff for the host phases.
 
-Twin of repro/fault/inject.py; `retry_call` keeps no tracer spans (the
-port has no tracer yet: ROADMAP queue 1, item 7).
+Twin of repro/fault/inject.py; under an installed tracer (obs/trace.py)
+`retry_call` counts `fault.retries` and records a `fault.retry.<phase>`
+span per failed attempt.
 
 The injector is the bridge between a declarative `FaultPlan` and the
 execution seams the plan addresses:
@@ -34,6 +35,8 @@ import os
 import shutil
 import time
 from typing import Callable, Optional
+
+from repro_torch.obs.trace import get_tracer
 
 __all__ = ["FaultEscalation", "FaultInjector", "InjectedFault",
            "TransientFault", "TransientFetchFault", "TransientSampleFault",
@@ -187,14 +190,22 @@ def retry_call(fn: Callable, *, phase: str, attempts: int = 3,
     marked handled on its plan; exhausting the budget raises
     `FaultEscalation` chained to the last fault.
     """
+    tracer = get_tracer()
     t_start = time.perf_counter()
     delay = backoff
     seen = []
     while True:
+        t_attempt = time.perf_counter() if tracer.enabled else 0.0
         try:
             out = fn()
         except TransientFault as e:
             seen.append(e)
+            tracer.add("fault.retries", 1)
+            if tracer.enabled:
+                tracer.record_span(
+                    f"fault.retry.{phase}", t_attempt, time.perf_counter(),
+                    cat="fault", args={"attempt": len(seen),
+                                       "error": str(e)})
             elapsed = time.perf_counter() - t_start
             if len(seen) >= attempts or elapsed + delay > timeout:
                 raise FaultEscalation(

@@ -1,8 +1,6 @@
 """Deterministic fault plans: what breaks, where, and when.
 
-Twin of repro/fault/plan.py without its tracer calls (the port has no
-tracer yet: ROADMAP queue 1, item 7); the plan's own `injected_count` /
-`handled_count` are the record.
+Twin of repro/fault/plan.py, tracer calls included.
 
 A `FaultPlan` is a seeded, declarative list of faults to inject into a run
 — the chaos-engineering twin of the study grids: every fault is addressed
@@ -26,17 +24,23 @@ Spec grammar (the `--inject-fault` CLI argument, repeatable)::
 An unknown kind (or malformed spec) raises `FaultSpecError` whose message
 lists the valid kinds — the CLIs turn that into an exit-1 diagnosis.
 
-The plan keeps its own authoritative counts of every injection and every
-successful handling.
+Every injection and every successful handling is recorded in the tracer
+(obs/trace.py: `fault.injected` / `fault.handled` counters plus a
+`fault.inject` span per event), and the plan keeps its own authoritative
+counts — the reconciliation gate (obs/reconcile.reconcile_recovery) holds
+the two stories against each other EXACTLY.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Iterable, List, Optional
 
 import numpy as np
+
+from repro_torch.obs.trace import get_tracer
 
 __all__ = ["FAULT_KINDS", "FaultEvent", "FaultPlan", "FaultSpecError",
            "parse_fault_spec"]
@@ -182,14 +186,22 @@ class FaultPlan:
 
     # ------------------------------------------------------------ recording
     def fire(self, ev: FaultEvent, **ctx) -> bool:
-        """Mark `ev` injected (once); False if it already fired. `ctx` (the
-        coordinates it fired at) is accepted for the reference's call
-        sites and not recorded."""
+        """Mark `ev` injected (once); False if it already fired. Records the
+        `fault.injected` counter and a `fault.inject` span, whose args are
+        the event and `ctx` (the coordinates it fired at)."""
         idx = self.events.index(ev)
         with self._lock:
             if idx in self._fired:
                 return False
             self._fired.add(idx)
+        tracer = get_tracer()
+        if tracer.enabled:
+            now = time.perf_counter()
+            args = {"kind": ev.kind, "event": ev.describe()}
+            args.update({k: v for k, v in ctx.items()})
+            tracer.record_span("fault.inject", now, now, cat="fault",
+                               args=args)
+        tracer.add("fault.injected", 1)
         return True
 
     def mark_handled(self, ev: FaultEvent) -> bool:
@@ -200,6 +212,7 @@ class FaultPlan:
             if idx not in self._fired or idx in self._handled:
                 return False
             self._handled.add(idx)
+        get_tracer().add("fault.handled", 1)
         return True
 
     # ------------------------------------------------------------- accounts

@@ -1,7 +1,9 @@
 """Recovery strategies: elastic degrade-and-recover + serving failover.
 
-Twin of repro/fault/recovery.py without its tracer spans (ROADMAP queue 1,
-item 7).
+Twin of repro/fault/recovery.py. Under an installed tracer (obs/trace.py)
+a rescale records the `fault.restore`, `fault.repartition` and
+`fault.recovery` spans and the `fault.recovery_time_model` counter, and
+the first step after it the `fault.recompile` span.
 
 Training (full-batch): `run_elastic_fullbatch` is a supervised driver over
 `FullBatchTrainer` that reacts to the plan's `worker-loss` events by
@@ -26,6 +28,7 @@ vertex partitions) fall back to a deterministic spread over survivors.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, List
@@ -37,6 +40,7 @@ from repro_torch.ckpt.checkpoint import tree_nbytes
 from repro_torch.core import cost_model
 from repro_torch.core.cost_model import PAPER_CLUSTER, ClusterSpec
 from repro_torch.core.edge_partition import partition_edges
+from repro_torch.obs.trace import get_tracer
 
 __all__ = ["ElasticEvent", "ElasticRunResult", "failover_assignment",
            "run_elastic_fullbatch"]
@@ -126,20 +130,32 @@ def _rescale(trainer, new_k: int, epoch: int, action: str, graph, features,
              cluster: ClusterSpec) -> tuple:
     from repro_torch.ckpt.elastic import rescale_fullbatch
 
+    tracer = get_tracer()
+    t_rec0 = time.perf_counter() if tracer.enabled else 0.0
     # restore phase: the state a real peer would read from the checkpoint,
     # priced from its bytes
-    ckpt_bytes = _state_bytes(trainer)
+    with (tracer.span("fault.restore", cat="fault",
+                      args={"epoch": epoch, "action": action})
+          if tracer.enabled else contextlib.nullcontext()):
+        ckpt_bytes = _state_bytes(trainer)
     old_k = trainer.book.k
     # the old layout is dead: release its device blocks before the new ones
     # are built (the rescale reads only the run state)
     trainer.blocks = None
     trainer.__dict__.pop("_step_fns", None)
-    t_p0 = time.perf_counter()
-    new = rescale_fullbatch(
-        trainer, graph, new_k, features, labels, train_mask,
-        partitioner=partitioner, seed=seed)
-    repartition_s = time.perf_counter() - t_p0
+    with tracer.span("fault.repartition", cat="fault",
+                     args={"old_k": old_k, "new_k": new_k}) as sp:
+        new = rescale_fullbatch(
+            trainer, graph, new_k, features, labels, train_mask,
+            partitioner=partitioner, seed=seed)
+    repartition_s = sp.duration
     est = cost_model.recovery_time(ckpt_bytes, repartition_s, cluster=cluster)
+    tracer.add("fault.recovery_time_model", est.recovery_time)
+    if tracer.enabled:
+        tracer.record_span(
+            "fault.recovery", t_rec0, time.perf_counter(), cat="fault",
+            args={"epoch": epoch, "action": action, "old_k": old_k,
+                  "new_k": new_k, "recovery_time_model": est.recovery_time})
     event = ElasticEvent(epoch=epoch, action=action, old_k=old_k,
                          new_k=new_k, estimate=est,
                          repartition_s=repartition_s)
@@ -171,6 +187,7 @@ def run_elastic_fullbatch(
     `ElasticEvent` per rescale."""
     from repro_torch.gnn.fullbatch import FullBatchTrainer
 
+    tracer = get_tracer()
     assignment = partition_edges(graph, k, partitioner, seed=seed)
     trainer = FullBatchTrainer.build(
         graph, assignment, k, spec, features, labels, train_mask,
@@ -210,12 +227,16 @@ def run_elastic_fullbatch(
         trainer.set_epoch(epoch)
         t0 = time.perf_counter()
         losses.append(float(trainer.train_step()))
-        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
         if just_rescaled:
             # the first step after a rescale runs on the new layout's
             # shapes for the first time; record it against the estimate's
             # re-compile term
-            events[-1].compile_s = wall
+            if tracer.enabled:
+                tracer.record_span("fault.recompile", t0, t1, cat="fault",
+                                   args={"epoch": epoch,
+                                         "k": trainer.book.k})
+            events[-1].compile_s = t1 - t0
             just_rescaled = False
         k_history.append(trainer.book.k)
     return ElasticRunResult(losses=losses, k_history=k_history,

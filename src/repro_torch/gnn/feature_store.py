@@ -1,5 +1,6 @@
 # Copy of repro/gnn/feature_store.py (NumPy only, with the port's wire
-# codecs and fault-injection seam): the tracer calls are left out.
+# codecs, fault-injection seam and tracer: `gather` records the
+# `store.gather` span and the fetch counters under an installed tracer).
 # tests/test_torch_host.py and tests/test_torch_wire.py hold its results
 # equal to the original.
 """Partitioned row stores: owner shards + per-worker static caches.
@@ -32,6 +33,7 @@ feature-flavored front the mini-batch trainer loads its input rows through.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +42,7 @@ from repro_torch.core.graph import Graph
 from repro_torch.core.partition_book import VertexPartitionBook
 from repro_torch.core.wire import Codec, as_codec
 from repro_torch.fault import inject as fault_inject
+from repro_torch.obs.trace import get_tracer
 
 __all__ = [
     "CACHE_POLICIES",
@@ -255,12 +258,17 @@ class RowStore:
 
     def gather(self, worker: int, ids: np.ndarray) -> tuple[np.ndarray, FetchStats]:
         """Assemble the row block for `ids` from shard/cache/remote and
-        return it with the phase accounting."""
+        return it with the phase accounting. Under an installed tracer it
+        records the `store.gather` span and the measured `fetch.wire_bytes`
+        and `fetch.miss_bytes` counters and the `cache.hit_rate` gauge
+        (obs/reconcile.py holds them to the codec's formula)."""
         if self.rows is None:
             raise ValueError("accounting-only store (built without rows)")
         hook = fault_inject.fetch_hook()
         if hook is not None:  # injection seam: may raise TransientFetchFault
             hook(worker, ids)
+        tracer = get_tracer()
+        t0 = time.perf_counter() if tracer.enabled else 0.0
         ids = np.asarray(ids, dtype=np.int64)
         local, hit, miss = self.split(worker, ids)
         out = np.empty((ids.shape[0], self.row_dim), dtype=self.rows.dtype)
@@ -280,6 +288,15 @@ class RowStore:
                                    dtype=self.rows.dtype)
         out[miss] = miss_rows
         stats = self._stats_of(ids, local, hit, miss)
+        if tracer.enabled:
+            tracer.record_span("store.gather", t0, time.perf_counter(),
+                               cat="fetch",
+                               args={"worker": int(worker),
+                                     "ids": int(ids.shape[0]),
+                                     "miss": stats.num_remote_miss})
+            tracer.add("fetch.wire_bytes", wire)
+            tracer.add("fetch.miss_bytes", stats.miss_bytes)
+            tracer.gauge("cache.hit_rate", stats.hit_rate)
         return out, stats._replace(wire_bytes=wire)
 
 

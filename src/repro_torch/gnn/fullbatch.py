@@ -18,12 +18,16 @@ one gradient of the loss through shared leaves, bit for bit the codec-free
 step. A lossy codec takes the reference's error-feedback step: each
 partition's gradient k * dL/dW_j through per-partition parameter copies
 (`models.per_partition_grads`), their compressed mean with the EF carry
-(`codec_grad_reduce`), then Adam on the mean. The shard_map mode is not
-yet ported (ROADMAP queue 1, item 5).
+(`codec_grad_reduce`), then Adam on the mean. Either step runs under
+PyTorch's deterministic algorithms (`minibatch.repeatable_step`), as the
+mini-batch step does, so it repeats bit for bit on the CPU and on the
+card, scatter backend included. The shard_map mode is not yet ported
+(ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Optional
@@ -39,6 +43,7 @@ from repro_torch.core.partition_book import (
 )
 from repro_torch.core.wire import as_codec, codec_grad_reduce, ef_init
 from repro_torch.gnn import models
+from repro_torch.gnn.minibatch import repeatable_step
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sync import (
     SYNC_MODES,
@@ -48,6 +53,7 @@ from repro_torch.gnn.sync import (
     sync_bytes_per_round,
     sync_wire_bytes_per_round,
 )
+from repro_torch.obs.trace import get_tracer
 from repro_torch.optim import (
     AdamState,
     adam_init,
@@ -171,7 +177,20 @@ class FullBatchTrainer:
     def train_step(self) -> float:
         """One Adam step on the full graph; returns the loss before the
         update. Reading it waits for the whole step, update included (one
-        stream)."""
+        stream). The step runs under `minibatch.repeatable_step`, so it
+        repeats bit for bit on every backend and device (a resumed run is
+        the uninterrupted one's); under an installed tracer it is the
+        `fullbatch.step` span, which ends after that read."""
+        tracer = get_tracer()
+        span = (tracer.span("fullbatch.step", cat="step",
+                            args={"sync": self.sync_mode})
+                if tracer.enabled else contextlib.nullcontext())
+        with span, repeatable_step():
+            return self._step()
+
+    def _step(self) -> float:
+        """The step's body, outside the deterministic mode (`train_step`
+        runs it inside; the smoke times the two against each other)."""
         loss_of, _ = self._step_fns
         codec = as_codec(self.codec)
         if codec.lossless:

@@ -14,7 +14,6 @@ the online path (`repro_torch.serve`) answers requests from.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -30,6 +29,7 @@ from repro_torch.gnn import models
 from repro_torch.gnn.feature_store import RowStore, select_cache_vertices
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sync import Block, build_blocks, make_sync, sync_bytes_per_round
+from repro_torch.obs.trace import get_tracer
 
 __all__ = [
     "LayerwiseInference",
@@ -107,11 +107,15 @@ class LayerwiseInference:
         states = self.blocks.x  # [k, n, F]
         outs: list[np.ndarray] = []
         times: list[float] = []
+        tracer = get_tracer()
         for li in range(self.spec.num_layers):
-            t0 = time.perf_counter()
-            states = self.layer(li, states)
-            _sync_device(self.device)
-            times.append(time.perf_counter() - t0)
+            # layer_times are the span durations — one timing source; the
+            # span ends after the device synchronise
+            with tracer.span("inference.layer", cat="inference",
+                             args={"layer": li}) as sp:
+                states = self.layer(li, states)
+                _sync_device(self.device)
+            times.append(sp.duration)
             outs.append(self.book.scatter_to_global(states.cpu().numpy()))
         self.layer_times = times
         return outs

@@ -58,6 +58,7 @@ from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.pipeline import BatchPreparer, PipelineEngine
 from repro_torch.gnn.sampling import PAPER_FANOUTS, SamplePlan
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import get_tracer
 from repro_torch.optim import (
     AdamState,
     adam_init,
@@ -447,6 +448,15 @@ class MiniBatchTrainer:
         # serial mode: phases are contiguous, so charge the (tiny) engine
         # overhead to compute and the four phases sum exactly to the wall
         compute = (t2 - t1) if self.overlap else (wall - pb.host_time)
+        tracer = get_tracer()
+        if tracer.enabled:
+            # the step/compute spans share the StepMetrics timestamps —
+            # one clock, whether read from the trace or from the row; both
+            # end after `device_step` read the loss back from the device
+            tracer.record_span("minibatch.compute", t1, t2, cat="step",
+                               args={"step": pb.index})
+            tracer.record_span("minibatch.step", t0, t2, cat="step",
+                               args={"step": pb.index, "loss": loss})
 
         if self.rebalance:
             self._load_ema = (0.7 * self._load_ema

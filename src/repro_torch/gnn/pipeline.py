@@ -1,7 +1,7 @@
 """Overlapped mini-batch execution: sampling and feature prefetch pipelined
 against the device step.
 
-Twin of repro/gnn/pipeline.py, without its tracer calls. Per mini-batch:
+Twin of repro/gnn/pipeline.py, tracer calls included. Per mini-batch:
 
   draw      per-worker seed draw            (host, per-step RNG streams)
   sample    k workers' k-hop MFGs           (host thread pool, parallel)
@@ -32,6 +32,12 @@ from the same (t, w) `SeedSequence`, so it is bit for bit the first. An
 injected fault raised on the producer thread reaches the consumer as
 itself, as serial mode raises it inline.
 
+Under an installed tracer (obs/trace.py) `prepare` records the
+`pipeline.sample` / `fetch` / `transfer` spans (its `PhaseClock`: the
+spans are the `PreparedBatch` times), and the overlapped engine the
+consumer's `pipeline.queue_wait` span and the `pipeline.queue_depth`
+gauge (producer and consumer side).
+
 The transfer on the card: the stacked host arrays are written into
 page-locked memory during the fetch and copied with `non_blocking=True` on
 the preparer's own CUDA stream, which the preparer then waits for, so
@@ -60,6 +66,7 @@ from repro_torch.core.partition_book import VertexPartitionBook
 from repro_torch.fault.inject import FaultInjector, InjectedFault, retry_call
 from repro_torch.gnn.feature_store import FeatureStore, FetchStats
 from repro_torch.gnn.sampling import SamplePlan, SampledBatch, sample_blocks
+from repro_torch.obs.trace import get_tracer
 
 __all__ = ["BatchPreparer", "PipelineEngine", "PreparedBatch"]
 
@@ -313,14 +320,17 @@ class BatchPreparer:
         executor: Optional[ThreadPoolExecutor] = None,
     ) -> PreparedBatch:
         """Produce the next batch: draw + sample (parallel over workers when
-        an executor is given), gather + stack, transfer. Each phase boundary
-        is one clock reading, so the three host times sum to the host
-        wall."""
+        an executor is given), gather + stack, transfer. The tracer's
+        `PhaseClock` keeps the phase spans contiguous (each boundary is ONE
+        clock reading), so the three host times sum to the host wall and
+        the recorded spans ARE the `PreparedBatch` durations. The transfer
+        span ends after the copy's event is waited on."""
         index = self._next_index
         self._next_index += 1
         if self.injector is not None:
             self.injector.at_step(index)
-        t0 = time.perf_counter()
+        clock = get_tracer().phase_clock(cat="pipeline",
+                                         args={"step": index})
         seqs = self._step_seed_seqs()
         counts = self._seed_counts(seed_share)
         jobs = [(index, w, ss, int(counts[w])) for w, ss in enumerate(seqs)]
@@ -329,11 +339,11 @@ class BatchPreparer:
                 lambda job: self._sample_job(*job), jobs))
         else:
             batches = [self._sample_job(*job) for job in jobs]
-        t1 = time.perf_counter()
+        sample_time = clock.split("pipeline.sample")
         host, fetch = self._stack_batches(index, batches)
-        t2 = time.perf_counter()
+        fetch_time = clock.split("pipeline.fetch")
         stacked, ready = self._transfer(host)
-        t3 = time.perf_counter()
+        transfer_time = clock.split("pipeline.transfer")
         return PreparedBatch(
             index=index,
             stacked=stacked,
@@ -342,9 +352,9 @@ class BatchPreparer:
             input_vertices=np.array([b.num_input for b in batches]),
             remote_vertices=np.array([b.num_remote for b in batches]),
             edges=np.array([b.num_edges for b in batches]),
-            sample_time=t1 - t0,
-            fetch_time=t2 - t1,
-            transfer_time=t3 - t2,
+            sample_time=sample_time,
+            fetch_time=fetch_time,
+            transfer_time=transfer_time,
             ready=ready,
         )
 
@@ -407,12 +417,17 @@ class PipelineEngine:
 
     # ------------------------------------------------------------ producer
     def _produce(self) -> None:
+        tracer = get_tracer()
         try:
             while not self._stop.is_set():
                 pb = self.preparer.prepare(self._current_share(), self._pool)
                 while not self._stop.is_set():
                     try:
                         self._queue.put(pb, timeout=0.05)
+                        # prefetch-queue occupancy, sampled from the
+                        # producer side after each successful put
+                        tracer.gauge("pipeline.queue_depth",
+                                     self._queue.qsize())
                         break
                     except queue.Full:
                         continue
@@ -450,7 +465,12 @@ class PipelineEngine:
                     err = self._error
                     self.close()
                     raise RuntimeError("pipeline producer died") from err
-        wait = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        wait = t1 - t0
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.record_span("pipeline.queue_wait", t0, t1, cat="pipeline")
+            tracer.gauge("pipeline.queue_depth", self._queue.qsize())
         if isinstance(item, _Poison):
             self.close()
             if isinstance(item.error, InjectedFault):

@@ -59,17 +59,27 @@ encoded buffer by `codec.wire_bytes`, as the reference does.
 
 No completion's result depends on the order of float atomics: every
 `index_add_` / `scatter_reduce_` a completion issues adds at most one real
-value to a row (pads write the dummy rows with the reduce's identity), and
+value to a row (the sums and the broadcast take the real slots alone; the
+max's pads write the dummy rows with its identity), and
 sums over partitions or stages are reductions over a stacked dimension or
-adds in a fixed order. The edge gathers' backward is PyTorch's sort-based
-`index_put_` accumulate, which repeats. So a tiled full-batch step repeats
-bit for bit; the scatter backend's own `index_add_` (kernels/ref.py) is
-the oracle and adds in atomic order.
+adds in a fixed order. On the card the edge gathers' backward is
+PyTorch's sort-based `index_put_` accumulate, which repeats, so a tiled
+full-batch step repeats bit for bit as it runs; the scatter backend's own
+`index_add_` (kernels/ref.py) adds in atomic order, and on the CPU the
+gathers' backward adds in thread order, unless PyTorch's deterministic
+algorithms are on, as they are for every training step
+(`minibatch.repeatable_step`).
+
+Under an installed tracer (obs/trace.py) Dense, Halo and Ring record each
+collective the reference's strategies record (`_record_collective`), at
+the same logical points and with the reference's byte conventions, once
+per forward pass (the reference records once, when jax traces the step).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -79,6 +89,41 @@ from repro_torch.core.partition_book import BlockRowBook, EdgePartitionBook
 from repro_torch.core.wire import Codec, as_codec
 from repro_torch.kernels import ops
 from repro_torch.kernels.tiling import tiled_shape
+from repro_torch.obs.trace import get_tracer
+
+# forward-pass ordinals for the recorded collectives (see _record_collective)
+_FORWARDS = itertools.count()
+
+
+def _nbytes(x) -> int:
+    """Byte size of a tensor (0 for None). On a stacked [k, ...] tensor
+    that is the k partitions' bytes together: the reference's per-device
+    size times k."""
+    if x is None:
+        return 0
+    return x.numel() * x.element_size()
+
+
+def _record_collective(sync, kind: str, cluster_bytes: int,
+                       wire_bytes: Optional[int] = None, *,
+                       layer: int = 0) -> None:
+    """Report one collective of `sync`'s forward pass to the installed
+    tracer, at the reference's logical points (repro/gnn/sync.py
+    `_record_collective`) and with its byte conventions: cluster bytes are
+    the per-device output size times k, wire bytes k times the per-device
+    encoded payload (+ meta). The reference records once, when jax traces
+    the step; the stacked partitions run eagerly, so every forward pass
+    records its own set, stamped with the pass's ordinal (`forward`), and
+    `obs.reconcile` compares one pass. Loss-scalar sums are not recorded,
+    as in the reference."""
+    tr = get_tracer()
+    if tr.enabled:
+        fwd = getattr(sync, "_forward", None)
+        if fwd is None:  # a layer run outside `models.forward`
+            fwd = next(_FORWARDS)
+            object.__setattr__(sync, "_forward", fwd)
+        tr.collective(kind, cluster_bytes, wire_bytes=wire_bytes,
+                      layer=layer, forward=fwd)
 
 
 class Block(NamedTuple):
@@ -113,6 +158,43 @@ class Block(NamedTuple):
     agg_ldst: torch.Tensor     # [k*E_tiled] int32
     rows_padded: int           # R = tiled_shape(n)[0]
     num_vertices: int          # V: vglobal's pad value, Dense's dummy row
+    # the completions' real slots, pads left out (`_completion_tables`)
+    halo_rows: tuple           # per sender: [real] int64 rows in [k*n]
+    halo_slots: tuple          # per sender: [real] int64 slots in [k*B]
+    bcast_rows: torch.Tensor   # [real] int64 mirror rows in [k*n]
+    bcast_slots: torch.Tensor  # [real] int64 slots in [k*k*B]
+    dense_src: torch.Tensor    # [real] int64 real rows in [k*n]
+    dense_rows: torch.Tensor   # [real] int64 their rows in [k*(V+1)]
+
+
+def _completion_tables(book: EdgePartitionBook, vg: np.ndarray) -> dict:
+    """The rows each completion writes and where its values sit, real
+    slots only. The pad slots carry the reduce's identity to a dummy row,
+    so leaving them out changes no real row, and under PyTorch's
+    deterministic algorithms (the training step's) an `index_add_` or an
+    index assignment sorts its indices and walks each row's duplicates one
+    after another: thousands of pads on one dummy row made the halo and
+    dense steps slower than their atomic versions. Halo's reduce, sender
+    i: receiver j's row `recv_idx[j, i, b]` takes slot j*B + b of what i
+    sent; its broadcast writes mirror row `send_idx[i, j, b]` of partition
+    i from slot (i*k + j)*B + b of the exchanged buffer; Dense places
+    partition p's real row r at p*(V+1) + vglobal[p, r]."""
+    k, n = book.k, book.v_max + 1
+    part = np.arange(k, dtype=np.int64)
+    recv_rows = part[:, None, None] * n + book.recv_idx.astype(np.int64)
+    halo_rows, halo_slots = [], []
+    for i in range(k):
+        slots = np.flatnonzero(book.recv_mask[:, i])
+        halo_slots.append(slots)
+        halo_rows.append(recv_rows[:, i].reshape(-1)[slots])
+    send_rows = part[:, None, None] * n + book.send_idx.astype(np.int64)
+    bcast_slots = np.flatnonzero(book.send_mask)
+    dense_src = np.flatnonzero(book.vmask)
+    g_rows = part[:, None] * (book.num_vertices + 1) + vg
+    return {"halo_rows": halo_rows, "halo_slots": halo_slots,
+            "bcast_rows": send_rows.reshape(-1)[bcast_slots],
+            "bcast_slots": bcast_slots, "dense_src": dense_src,
+            "dense_rows": g_rows.reshape(-1)[dense_src]}
 
 
 def build_blocks(
@@ -146,6 +228,7 @@ def build_blocks(
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
+    tables = _completion_tables(book, vg)
     return Block(
         x=t(x), labels=t(lab), train_mask=t(tm),
         esrc=t(book.esrc, torch.int64), edst=t(book.edst, torch.int64),
@@ -162,6 +245,12 @@ def build_blocks(
         agg_ldst=t(book.agg_ldst.reshape(-1), torch.int32),
         rows_padded=rows_padded,
         num_vertices=book.num_vertices,
+        halo_rows=tuple(t(r) for r in tables["halo_rows"]),
+        halo_slots=tuple(t(s) for s in tables["halo_slots"]),
+        bcast_rows=t(tables["bcast_rows"]),
+        bcast_slots=t(tables["bcast_slots"]),
+        dense_src=t(tables["dense_src"]),
+        dense_rows=t(tables["dense_rows"]),
     )
 
 
@@ -176,6 +265,7 @@ class _CodecSync:
 
     def reset_layer_counter(self) -> None:
         object.__setattr__(self, "_agg_layer", 0)
+        object.__setattr__(self, "_forward", next(_FORWARDS))
 
     def _take_layer(self) -> int:
         layer = int(getattr(self, "_agg_layer", 0))
@@ -268,9 +358,15 @@ class DenseSync(_PartialAggSync):
     def reduce_sum(self, h):
         blk = self.blk
         k, n, d = h.shape
-        buf, rows, g_rows = self._stacked(h, 0.0)
-        part = (h * blk.vmask[..., None]).reshape(k * n, d)
-        g = self._wire(buf.index_add(0, rows, part).reshape(k, g_rows, d))
+        buf, _, g_rows = self._stacked(h, 0.0)
+        # the real rows only (`_completion_tables`): pads would add zeros
+        part = h.reshape(k * n, d).index_select(0, blk.dense_src)
+        g = self._wire(buf.index_add(0, blk.dense_rows, part)
+                       .reshape(k, g_rows, d))
+        # wire_bytes=None: the reduce moves the decoded f32 view, so the
+        # transport formula (2x encoded) intentionally diverges
+        _record_collective(self, "all-reduce", _nbytes(g),
+                           layer=getattr(self, "_cur_layer", 0))
         g = g.sum(0)
         return g[blk.vglobal] * blk.vmask[..., None]
 
@@ -281,6 +377,8 @@ class DenseSync(_PartialAggSync):
         part = torch.where(blk.vmask[..., None], h, -1e30).reshape(k * n, d)
         buf.scatter_reduce_(0, rows[:, None].expand(-1, d), part,
                             reduce="amax", include_self=True)
+        _record_collective(self, "all-reduce", _nbytes(buf),
+                           layer=getattr(self, "_cur_layer", 0))
         g = buf.reshape(k, g_rows, d).amax(0)
         return torch.where(blk.vmask[..., None], g[blk.vglobal], h)
 
@@ -299,11 +397,12 @@ class HaloSync(_PartialAggSync):
     reduce_*: every mirror packs its partial rows for each master partition
     into fixed buckets; after the exchange, masters scatter-accumulate, one
     sender at a time in sender order. Within one (receiver, sender) pair
-    the real slots are distinct master rows and the pads hit the dummy row
-    with the reduce's identity, so no row takes two real values in one
-    call: the completion does not depend on the order of atomic adds,
-    although a master row receives from several mirrors.
-    broadcast: the exact reverse routing pushes completed rows back.
+    the real slots are distinct master rows (the sum takes those alone;
+    the max's pads hit the dummy row with its identity), so no row takes
+    two values in one call: the completion does not depend on the order
+    of atomic adds, although a master row receives from several mirrors.
+    broadcast: the exact reverse routing pushes completed rows back, each
+    mirror row written once.
     The codec brackets `_exchange`: one scale a sender over its [k, B, d]
     buffer, and received bucket i decoded with sender i's scale."""
 
@@ -312,7 +411,19 @@ class HaloSync(_PartialAggSync):
 
     def _exchange(self, buf: torch.Tensor) -> torch.Tensor:
         # buf [k(sender), k(bucket), B, d]; result[j, i] = what i sent to j
-        return self._wire(buf).transpose(0, 1)
+        codec = self._codec()
+        lay = getattr(self, "_cur_layer", 0)
+        payload, meta = codec.encode(buf, layer=lay, stacked=True)
+        pb, mb = _nbytes(payload), _nbytes(meta)
+        # the stacked payload is the k devices' [k, B, d] buffers: the
+        # reference's cluster bytes (k x per-device output); wire bytes
+        # add the k sender scales
+        _record_collective(self, "all-to-all", pb, pb + mb, layer=lay)
+        if meta is not None:
+            # every device gathers the k sender scales
+            _record_collective(self, "all-gather", buf.shape[0] * mb,
+                               layer=lay)
+        return codec.decode(payload, meta).transpose(0, 1)
 
     def _gather(self, h, idx):
         k, n, d = h.shape
@@ -328,10 +439,15 @@ class HaloSync(_PartialAggSync):
 
     def reduce_sum(self, h):
         blk = self.blk
+        k, n, d = h.shape
         send = self._gather(h, blk.send_idx) * blk.send_mask[..., None]
-        flat, pairs = self._per_sender(h, self._exchange(send))
-        for rows, vals in pairs:
-            flat.index_add_(0, rows, vals)
+        recv = self._exchange(send)
+        flat = h.reshape(k * n, d)
+        # sender by sender, its real slots only (`_completion_tables`):
+        # the pads would add zeros to the dummy rows
+        for i in range(k):
+            flat.index_add_(0, blk.halo_rows[i], recv[:, i].reshape(-1, d)
+                            .index_select(0, blk.halo_slots[i]))
         return flat.reshape(h.shape)
 
     def reduce_max(self, h):
@@ -354,12 +470,11 @@ class HaloSync(_PartialAggSync):
         k, n, d = h.shape
         send = self._gather(h, blk.recv_idx) * blk.recv_mask[..., None]
         recv = self._exchange(send)
-        current = self._gather(h, blk.send_idx)
-        updated = torch.where(blk.send_mask[..., None], recv, current)
-        # real send slots are unique; pad slots all rewrite the dummy row
-        # with its own value
+        # each mirror row is written once, from its real slot
+        # (`_completion_tables`); the pad slots would rewrite a dummy row
         flat = h.reshape(k * n, d)
-        flat[_flat_rows(blk.send_idx, n)] = updated.reshape(-1, d)
+        flat[blk.bcast_rows] = recv.reshape(-1, d).index_select(
+            0, blk.bcast_slots)
         return flat.reshape(k, n, d)
 
     def psum(self, v):
@@ -469,6 +584,15 @@ class RingSync(_CodecSync):
         enc, meta = codec.encode(payload, layer=layer, stacked=True)
         acc = None
         for s in range(k):
+            if s < k - 1:
+                # the reference's ppermute of the encoded block (and of its
+                # scale) that ships stage s+1's block during stage s
+                _record_collective(self, "collective-permute", _nbytes(enc),
+                                   _nbytes(enc), layer=layer)
+                if meta is not None:
+                    _record_collective(self, "collective-permute",
+                                       _nbytes(meta), _nbytes(meta),
+                                       layer=layer)
             flat = codec.decode(enc, meta).reshape(k * n, d)
             messages = msg_fn(flat[blk.ring_src[s]], blk.ring_dst[s],
                               blk.ring_mask[s])
@@ -547,7 +671,7 @@ def collective_budget(book, d: int, mode: str, codec=None,
     per kind: {kind: {"count": (lo, hi), "cluster_bytes": int}}, as the
     reference predicts them for its compiled program (repro/gnn/sync.py
     `collective_budget`). The stacked partitions issue none; the
-    multi-process mode (ROADMAP queue 1, item 5) is what these describe.
+    multi-process mode (ROADMAP queue 1, item 4) is what these describe.
 
       halo   2 all_to_alls of each device's [k, B, d] buffer in the codec's
              wire dtype; codecs with a scale gather the k sender scales:

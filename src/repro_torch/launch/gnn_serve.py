@@ -13,8 +13,12 @@ no GPU it raises. Features, request ids and arrivals are drawn from
 the same requests. `--codec` sets the wire codec (core/wire.py) of the
 embedding store: remote-miss rows are shipped encoded and decoded at the
 reader, and the modeled service time is priced from the encoded bytes.
-Traces and study rows (`--trace`, `--out-json`, ROADMAP queue 1, item 7)
-are not yet ported and are refused.
+`--trace PATH` records the run's timeline to PATH (Chrome trace-event
+JSON, schema gnn-trace/v1: inference layers and the real gather/compute
+spans on the host process, the request lifecycle on the simulated clock)
+and the reconciliation report to PATH.report.json. Study rows
+(`--out-json`, ROADMAP queue 1, item 2) are not yet ported and are
+refused.
 
 `--inject-fault worker-death@t:T,worker:W` kills serving worker W at
 virtual time T: its unanswered requests fail over to the survivors after
@@ -52,10 +56,15 @@ from repro_torch.core.vertex_partition import VERTEX_PARTITIONERS, partition_ver
 from repro_torch.core.wire import CODECS
 from repro_torch.fault import FaultPlan, FaultSpecError
 from repro_torch.fault.recovery import failover_assignment
-from repro_torch.gnn.feature_store import CACHE_POLICIES
+from repro_torch.gnn.feature_store import CACHE_POLICIES, RowStore
 from repro_torch.gnn.inference import LayerwiseInference, edge_assignment_from_vertex
 from repro_torch.gnn.models import GNNSpec, init_params
-from repro_torch.launch.gnn_train import refuse_not_ported
+from repro_torch.launch.gnn_train import (
+    NOT_PORTED,
+    refuse_not_ported,
+    write_traced_run,
+)
+from repro_torch.obs import Tracer, get_tracer, install, reconcile
 from repro_torch.serve.engine import ServingReport, build_serving, run_serving_sim
 
 
@@ -104,6 +113,13 @@ def parser() -> argparse.ArgumentParser:
                     choices=list(CACHE_POLICIES))
     ap.add_argument("--cache-budget", type=int, default=0,
                     help="cached remote embedding rows per worker")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="record the span/counter timeline to PATH (Chrome "
+                         "trace-event JSON, schema gnn-trace/v1: inference "
+                         "layers + real gather/compute spans on the host "
+                         "process, the request lifecycle on the simulated "
+                         "clock) and write the reconciliation report to "
+                         "PATH.report.json")
     ap.add_argument("--inject-fault", action="append", default=[],
                     metavar="SPEC",
                     help="deterministic fault injection (repeatable): "
@@ -130,13 +146,16 @@ class ServeRun:
     embeddings: list             # per-layer [V, d_l], input side first
     inference: LayerwiseInference
     report: ServingReport
+    store: RowStore              # the embedding store the requests read
     fault_plan: Optional[FaultPlan] = None  # the --inject-fault plan, if any
+    tracer: Optional[Tracer] = None         # the run's tracer under --trace
+    trace_report: Optional[object] = None   # its ReconcileReport
 
 
 def run(argv: Optional[list] = None) -> ServeRun:
     """Parse `argv` (default: sys.argv[1:]) and serve; prints a report."""
     argv = sys.argv[1:] if argv is None else argv
-    refuse_not_ported(argv, ("--trace", "--out-json"))
+    refuse_not_ported(argv, NOT_PORTED)
     args = parser().parse_args(argv)
     if args.smoke:
         args.requests = min(args.requests, 200)
@@ -150,7 +169,25 @@ def run(argv: Optional[list] = None) -> ServeRun:
         print(f"[serve] fault plan: "
               f"{'; '.join(ev.describe() for ev in plan.events)}")
     device = resolve_device(args.device)
+    # the tracer is the process's for the run, and only for it
+    prev = get_tracer()
+    tracer = install(Tracer()) if args.trace else None
+    try:
+        out = _serve(args, device, plan)
+        if tracer is not None:
+            checks = reconcile.reconcile_serving(out.report, out.store,
+                                                 tracer=tracer)
+            if plan is not None:
+                checks += reconcile.reconcile_recovery(plan, tracer=tracer)
+            out.tracer = tracer
+            out.trace_report = write_traced_run("serve", args.trace, tracer,
+                                                checks)
+        return out
+    finally:
+        install(prev)
 
+
+def _serve(args, device, plan) -> ServeRun:
     g = paper_graph(args.graph, scale=args.scale, seed=0)
     print(f"[serve] graph {args.graph}: {g.num_vertices} vertices, "
           f"{g.num_edges} edges")
@@ -256,7 +293,8 @@ def run(argv: Optional[list] = None) -> ServeRun:
         if not answered:
             sys.exit(1)
     return ServeRun(graph=g, spec=spec, embeddings=embeddings,
-                    inference=engine, report=report, fault_plan=plan)
+                    inference=engine, report=report, store=store,
+                    fault_plan=plan)
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -24,8 +24,12 @@ on the same data from the same weights. `--codec` sets the wire codec
 (core/wire.py) of every byte-moving path: the replica sync and the
 gradient reduce (full batch), the feature fetch and the gradient reduce
 (mini batch); `set_epoch` advances the variable codec's schedule each
-epoch. Traces and study rows (`--trace`, `--out-json`, ROADMAP queue 1,
-item 7) are not yet ported and are refused.
+epoch. `--trace PATH` installs the tracer (obs/trace.py) for the run and
+writes its timeline to PATH (Chrome trace-event JSON, schema
+gnn-trace/v1) and the measured-vs-model reconciliation to
+PATH.report.json (obs/reconcile.py; fault accounting too under
+`--inject-fault`). Study rows (`--out-json`, ROADMAP queue 1, item 2) are
+not yet ported and are refused.
 
 Robustness, as the reference CLI has it: `--ckpt-dir` checkpoints params,
 optimizer state, the lossy codec's EF carry and the run coordinates (full
@@ -33,8 +37,8 @@ batch each epoch, mini batch each global step, every `--ckpt-every`,
 keeping `--ckpt-keep`; ckpt/checkpoint.py, the reference's on-disk
 format); `--resume` restores the newest complete checkpoint and continues
 from the step after it: bit for bit the uninterrupted run's steps wherever
-a step repeats (the mini-batch step always; full batch, every tiled path
-on the card, and on the CPU under `torch.use_deterministic_algorithms`);
+a step repeats (both regimes' steps run under PyTorch's deterministic
+algorithms, `minibatch.repeatable_step`, on every backend and device);
 `--inject-fault SPEC` (repeatable, fault/plan.py grammar) injects
 deterministic faults: `crash@step:N` kills the run at step N (full batch:
 epoch N), `sample-error` / `fetch-error` / `straggler` are retried or
@@ -55,12 +59,15 @@ exit code 3 (`CRASH_EXIT`).
       --scale 0.05 --k 4 --ckpt-dir ck --inject-fault crash@step:2  # exit 3
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --k 4 --ckpt-dir ck --resume
+  PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
+      --scale 0.05 --k 4 --trace trace.json   # + trace.json.report.json
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -105,6 +112,7 @@ from repro_torch.gnn.fullbatch import FullBatchTrainer
 from repro_torch.gnn.minibatch import MiniBatchTrainer, StepMetrics
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sync import SYNC_MODES
+from repro_torch.obs import Tracer, get_tracer, install, reconcile, write_trace
 
 # The caching allocator's setting for training on the card. The tiled
 # layout's temporaries (tens of GiB, a different size at each layer)
@@ -120,8 +128,7 @@ DEFAULT_LR = {"fullbatch": 1e-2, "minibatch": 1e-3}
 CRASH_EXIT = 3  # injected worker crash (distinct from real failures)
 # the reference CLI's flags this port refuses, with the ROADMAP queue 1
 # item that ports them; the parser does not know them either
-NOT_PORTED = {"--trace": "tracing: ROADMAP queue 1, item 7",
-              "--out-json": "study rows: ROADMAP queue 1, item 7"}
+NOT_PORTED = {"--out-json": "study rows: ROADMAP queue 1, item 2"}
 
 
 def refuse_not_ported(argv: list, flags) -> None:
@@ -204,6 +211,12 @@ def parser() -> argparse.ArgumentParser:
                          "full batch diverges at 1e-2; 1e-3, the default of "
                          "Adam's paper (Kingma & Ba, ICLR 2015, Algorithm "
                          "1), does not")
+    ap.add_argument("--trace", default="", metavar="PATH",
+                    help="record the run's span/counter timeline to PATH "
+                         "(Chrome trace-event JSON, schema gnn-trace/v1; "
+                         "open in https://ui.perfetto.dev or "
+                         "chrome://tracing) and write the measured-vs-"
+                         "model reconciliation report to PATH.report.json")
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory (ckpt/checkpoint.py: atomic "
                          "step_<n>/ dirs, keep-last-k). Saves params + "
@@ -250,6 +263,8 @@ class TrainRun:
                                  # epoch); > 0 after --resume
     checkpoints: Any = None      # `RunCheckpoints` under --ckpt-dir
     fault_plan: Any = None       # the --inject-fault plan, if any
+    tracer: Any = None           # the run's `obs.Tracer` under --trace
+    trace_report: Any = None     # its `obs.reconcile.ReconcileReport`
 
 
 def run(argv: Optional[list] = None) -> TrainRun:
@@ -277,22 +292,60 @@ def run(argv: Optional[list] = None) -> TrainRun:
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    g, feats, labels, train_mask, spec = problem(args)
-    ckpt = RunCheckpoints(args, plan) if args.ckpt_dir else None
-    train = _minibatch if args.regime == "minibatch" else _fullbatch
+    # the tracer is the process's for the run, and only for it
+    prev = get_tracer()
+    tracer = install(Tracer()) if args.trace else None
     try:
-        out = train(args, device, lr, g, spec, feats, labels, train_mask,
-                    ckpt, plan)
-    except WorkerCrash as e:
-        print(f"[gnn] FATAL: {e}")
-        if args.ckpt_dir:
-            print(f"[gnn] resume: re-run with --resume "
-                  f"(checkpoints in {args.ckpt_dir})")
-        raise
-    out.checkpoints, out.fault_plan = ckpt, plan
-    if out.peak_memory is not None:
-        print(f"[gnn] peak device memory {out.peak_memory / 2**30:.2f} GiB")
-    return out
+        g, feats, labels, train_mask, spec = problem(args)
+        ckpt = RunCheckpoints(args, plan) if args.ckpt_dir else None
+        train = _minibatch if args.regime == "minibatch" else _fullbatch
+        try:
+            out = train(args, device, lr, g, spec, feats, labels,
+                        train_mask, ckpt, plan)
+        except WorkerCrash as e:
+            print(f"[gnn] FATAL: {e}")
+            if args.ckpt_dir:
+                print(f"[gnn] resume: re-run with --resume "
+                      f"(checkpoints in {args.ckpt_dir})")
+            raise
+        out.checkpoints, out.fault_plan = ckpt, plan
+        if out.peak_memory is not None:
+            print(f"[gnn] peak device memory "
+                  f"{out.peak_memory / 2**30:.2f} GiB")
+        if tracer is not None:
+            if args.regime == "fullbatch":
+                checks = reconcile.reconcile_fullbatch(out.trainer,
+                                                       tracer=tracer)
+            else:
+                checks = reconcile.reconcile_minibatch(
+                    out.trainer, out.step_metrics, tracer=tracer)
+            if plan is not None:
+                checks += reconcile.reconcile_recovery(plan, tracer=tracer)
+            out.tracer = tracer
+            out.trace_report = write_traced_run("gnn", args.trace, tracer,
+                                                checks)
+        return out
+    finally:
+        install(prev)
+
+
+def write_traced_run(tag: str, path: str, tracer, checks):
+    """Write `tracer`'s timeline to `path` and the reconciliation report
+    of `checks` to `path`.report.json; print its counts and every error.
+    Returns the report."""
+    report = reconcile.build_report(checks)
+    write_trace(path, tracer)
+    with open(path + ".report.json", "w") as fh:
+        json.dump(report.to_dict(), fh, indent=2)
+        fh.write("\n")
+    c = report.counts
+    print(f"[{tag}] trace -> {path} "
+          f"(report {path}.report.json: {c.get('ok', 0)} ok, "
+          f"{c.get('warn', 0)} warn, {c.get('error', 0)} error)")
+    for ch in report.checks:
+        if ch.level == "error":
+            print(f"  [error] {ch.quantity}: {ch.message}")
+    return report
 
 
 def problem(args: argparse.Namespace):

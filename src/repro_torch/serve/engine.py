@@ -1,6 +1,6 @@
 """The serving engine: embedding store + final-layer recompute, simulated QPS.
 
-Twin of repro/serve/engine.py, without its tracer spans. A request for
+Twin of repro/serve/engine.py. A request for
 vertex v's prediction is answered in three phases, priced on the paper's
 cluster by `core.cost_model.serve_request`:
 
@@ -17,13 +17,18 @@ Latencies are modeled for the paper's cluster; the host compute time is
 measured on the device the engine runs on. A fault plan's `worker-death`
 kills one worker at a virtual time; its unanswered requests fail over to
 the survivors (fault/recovery.py `failover_assignment`) and every request
-is still answered.
+is still answered. Under an installed tracer (obs/trace.py) `answer`
+records the `serve.gather` and `serve.compute` spans (the compute span's
+duration is the measured host compute seconds, ended by the device
+synchronise) and the sim records each request's lifecycle on its virtual
+clock (`serve.queue`, `serve.service.*`), the `fault.rerouted` counter and
+the `serve.worker_death` span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -36,6 +41,7 @@ from repro_torch.gnn.inference import build_embedding_stores
 from repro_torch.gnn.minibatch import mfg_forward
 from repro_torch.gnn.models import GNNSpec
 from repro_torch.gnn.sampling import SampledBatch, SamplePlan
+from repro_torch.obs.trace import get_tracer
 from repro_torch.serve.batcher import MicroBatch, MicroBatcher
 
 __all__ = ["ServeEngine", "ServingReport", "build_serving", "run_serving_sim"]
@@ -105,17 +111,24 @@ class ServeEngine:
         are padding, mask with batch.seed_mask —, the embedding-store fetch
         accounting, and the measured host compute seconds: the forward,
         ended by a device synchronise)."""
+        tracer = get_tracer()
         ids = batch.input_ids[batch.input_mask]
-        rows, stats = self.store.gather(self.worker, ids)
+        with (tracer.span("serve.gather", cat="serve",
+                          args={"worker": self.worker})
+              if tracer.enabled else contextlib.nullcontext()):
+            rows, stats = self.store.gather(self.worker, ids)
         x = np.zeros((batch.input_ids.shape[0], self.store.row_dim),
                      dtype=np.float32)
         x[batch.input_mask] = rows
         dev = self.device_batch(batch, x)
-        t0 = time.perf_counter()
-        out = mfg_forward(self.spec, self._layer_params, dev, self._sizes)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        host_s = time.perf_counter() - t0
+        # host compute = the compute span's duration (the same two clock
+        # readings either way)
+        with tracer.span("serve.compute", cat="serve",
+                         args={"worker": self.worker}) as sp:
+            out = mfg_forward(self.spec, self._layer_params, dev, self._sizes)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        host_s = sp.duration
         return out[: self.plan.seeds].cpu().numpy(), stats, host_s
 
     def estimate(self, batch: SampledBatch,
@@ -259,6 +272,7 @@ def run_serving_sim(
     request_ids = np.asarray(request_ids, dtype=np.int64)
     arrivals = np.asarray(arrivals, dtype=np.float64)
     k = len(engines)
+    tracer = get_tracer()
     latencies, lat_worker, queue_waits, served_ids, logits = [], [], [], [], []
     arrival_rec: list[np.ndarray] = []
     reroute_done: list[np.ndarray] = []  # completion times of rerouted reqs
@@ -301,6 +315,25 @@ def run_serving_sim(
             bworkers.append(w)
             bmiss.append(stats.num_remote_miss)
             all_stats.append(stats)
+            if tracer.enabled:
+                # the request lifecycle on the simulator's virtual clock:
+                # enqueue→dispatch per request on the worker's queue
+                # track, then the modeled gather/compute service phases
+                for rid, arr in zip(mb.ids, mb.arrivals):
+                    tracer.record_span(
+                        "serve.queue", float(arr), float(t_dispatch),
+                        cat="serve", clock="model",
+                        track=f"serve.worker{w}.queue",
+                        args={"rid": int(rid)})
+                t_fetch = t_dispatch + est.sample_time + est.fetch_time
+                tracer.record_span(
+                    "serve.service.gather", float(t_dispatch),
+                    float(t_fetch), cat="serve", clock="model",
+                    track=f"serve.worker{w}", args={"size": int(take)})
+                tracer.record_span(
+                    "serve.service.compute", float(t_fetch), float(t_done),
+                    cat="serve", clock="model",
+                    track=f"serve.worker{w}", args={"size": int(take)})
             t_free = t_done
             i += take
         return i
@@ -331,6 +364,7 @@ def run_serving_sim(
         fault_plan.fire(death_ev, worker=int(dead), at=fault_time)
         left_ids, left_orig = ids_d[served:], orig_d[served:]
         rerouted_n = int(left_ids.shape[0])
+        tracer.add("fault.rerouted", rerouted_n)
         new_owner = np.asarray(failover_owner)
         targets = new_owner[left_ids]
         if (targets == dead).any():
@@ -369,6 +403,11 @@ def run_serving_sim(
     if death_ev is not None:
         transition_end = (float(np.max(np.concatenate(reroute_done)))
                           if reroute_done else float(fault_time))
+        if tracer.enabled:
+            tracer.record_span(
+                "serve.worker_death", float(fault_time), transition_end,
+                cat="fault", clock="model", track=f"serve.worker{dead}",
+                args={"worker": int(dead), "rerouted": rerouted_n})
         fault_plan.mark_handled(death_ev)  # every rerouted request answered
 
     def cat(parts, empty):

@@ -11,7 +11,8 @@ reference's sizes of tests/test_fault.py: OR 0.02, k=4, widths 16 / 8).
       `WorkerCrash`; the module-level gather hook
   (d) crash and resume bit for bit within the port: mini batch (sage, gat
       x serial, overlapped), full batch under fp32 and under int8 with its
-      EF carry
+      EF carry; no test sets PyTorch's deterministic mode (both trainers'
+      steps run under `minibatch.repeatable_step`)
   (e) elastic rescale carries lr, the codec (and its tier) and the EF
       carry, and keeps distributed == single; `run_elastic_fullbatch`
       shrinks and grows like the reference's, losses within 1e-4
@@ -20,8 +21,8 @@ reference's sizes of tests/test_fault.py: OR 0.02, k=4, widths 16 / 8).
       worker death gives the reference's report
   (g) the CLIs: an unknown spec exits 1 naming the valid kinds, `main`
       exits 3 on an injected crash, `--resume` ends on the uninterrupted
-      run's final loss exactly, `gnn_serve` answers every request past a
-      worker death
+      run's final loss exactly (full batch at the CLI's defaults too),
+      `gnn_serve` answers every request past a worker death
 """
 
 import dataclasses
@@ -138,19 +139,6 @@ def _params(tr, tree="params"):
 
 def _bitwise(a, b):
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
-
-
-@pytest.fixture()
-def deterministic():
-    """PyTorch's deterministic algorithms for the test: on the CPU a
-    full-batch step repeats bit for bit only under them (two runs of the
-    same trainer differ in the last bits otherwise); the mini-batch step
-    sets them itself (`minibatch.repeatable_step`), and on the card the
-    tiled full-batch paths repeat as they run (chip_smoke.py phase 7)."""
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    yield
-    torch.use_deterministic_algorithms(was)
 
 
 # ----------------------------------------------------------- (a) the grammar
@@ -355,8 +343,7 @@ def test_minibatch_crash_resume_bitwise(data, tmp_path, model, overlap):
 
 
 @pytest.mark.parametrize("codec", [None, "int8"])
-def test_fullbatch_crash_resume_bitwise(data, tmp_path, codec,
-                                        deterministic):
+def test_fullbatch_crash_resume_bitwise(data, tmp_path, codec):
     """Full batch crashed at epoch 2 and resumed from the epoch-1
     checkpoint (params, Adam state and, under int8, the EF carry): epochs
     2-4, the final parameters and the final EF carry are the uninterrupted
@@ -623,8 +610,7 @@ def test_main_exits_3_on_an_injected_crash(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("regime", ["minibatch", "fullbatch int8"])
-def test_cli_crash_resume_ends_on_the_uninterrupted_loss(tmp_path, regime,
-                                                         deterministic):
+def test_cli_crash_resume_ends_on_the_uninterrupted_loss(tmp_path, regime):
     """A run crashed at step 3 and resumed with --resume (here through a
     corrupt newest checkpoint, step 2: restore falls back to step 1)
     trains the uninterrupted run's remaining steps bit for bit and ends on
@@ -650,6 +636,38 @@ def test_cli_crash_resume_ends_on_the_uninterrupted_loss(tmp_path, regime,
     assert out.checkpoints.nbytes > 0
     assert out.checkpoints.restore_seconds is not None
     assert _bitwise(_params(out.trainer), _params(oracle.trainer))
+
+
+def test_cli_fullbatch_resume_at_the_defaults_is_bitwise(tmp_path):
+    """The full-batch CLI at its defaults (scatter backend, fp32, halo),
+    crashed at epoch 2 and resumed from the epoch-1 checkpoint: epochs 2-4
+    and the final parameters are the uninterrupted run's, bit for bit, as
+    the reference pins for its trainer (tests/test_fault.py). The step
+    runs under `minibatch.repeatable_step` itself; nothing here sets
+    PyTorch's deterministic mode, and the process's setting is untouched
+    after each run."""
+    common = ["--device", "cpu", "--graph", "OR", "--scale", "0.02",
+              "--k", "4", "--features", "16", "--hidden", "8",
+              "--epochs", "5"]
+    assert not torch.are_deterministic_algorithms_enabled()
+    oracle = gnn_train.run(common)
+    assert not torch.are_deterministic_algorithms_enabled()
+    d = str(tmp_path / "ck")
+    with pytest.raises(WorkerCrash):
+        gnn_train.run(common + ["--ckpt-dir", d, "--inject-fault",
+                                "crash@step:2"])
+    out = gnn_train.run(common + ["--ckpt-dir", d, "--resume"])
+    assert out.trainer.spec.agg_backend == "scatter"
+    assert out.trainer.sync_mode == "halo" and out.trainer.codec == "fp32"
+    assert out.checkpoints.resumed_from == 1 and out.start_step == 2
+    assert out.losses == oracle.losses[2:]
+    assert _bitwise(_params(out.trainer), _params(oracle.trainer))
+    for moment in ("mu", "nu"):
+        a, b = (getattr(t.opt_state, moment)["layers"]
+                for t in (out.trainer, oracle.trainer))
+        assert _bitwise([x for lay in a for x in lay.values()],
+                        [x for lay in b for x in lay.values()])
+    assert not torch.are_deterministic_algorithms_enabled()
 
 
 def test_serve_cli_worker_death_answers_every_request(capsys):

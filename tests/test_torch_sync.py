@@ -21,7 +21,8 @@ trainers run their tiled backend (off-TPU the jnp oracle under its
       blockrow layout); `LayerwiseInference(sync_mode="dense")` == the
       reference's
   (g) no completion (halo, dense, ring) issues a scatter whose real
-      destination rows repeat: on the card such adds land in atomic order
+      destination rows repeat: on the card such adds land in atomic order;
+      the sum completions and halo's broadcast write no pad slot
 
 The reference cannot differentiate its dense GAT (`DenseSync.reduce_max`
 takes `lax.pmax` before GAT's stop_gradient, and `pmax` has no
@@ -395,3 +396,32 @@ def test_completion_adds_no_real_row_twice(data, monkeypatch, mode):
     assert _repeated_real_rows(calls, k) == [], calls
     # halo and dense complete partials through scatters; ring sums stages
     assert (len(calls) > 0) == (mode != "ring"), [c[:2] for c in calls]
+
+
+@pytest.mark.parametrize("mode", ["halo", "dense"])
+def test_sum_completions_write_no_pad_slot(data, monkeypatch, mode):
+    """The sum completions and halo's broadcast write the real rows only,
+    each once (`sync._completion_tables`): no add or assignment reaches a
+    dummy row. Under the deterministic algorithms of a training step a
+    pile of pad slots on one dummy row is walked serially; leaving them
+    out changes no real row (the other tests hold the values)."""
+    tr = _port_trainer(data, "sage", "tiled", mode)
+    blk = tr.blocks
+    sync = t_sync.make_sync(mode, blk)
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(ops, "aggregate", lambda m, dst, rows, **kw: torch.randn(
+        rows, m.shape[1], generator=gen))
+    k, n = blk.x.shape[:2]
+    calls = []
+    _record_scatters(monkeypatch, calls)
+    sync.edge_aggregate(blk, torch.randn(k, n, 6, generator=gen),
+                        lambda s, d, m: s, reduce="sum", backend="tiled")
+    monkeypatch.undo()
+    assert calls
+    real = (int(blk.recv_mask.sum()) + int(blk.send_mask.sum())
+            if mode == "halo" else int(blk.vmask.sum()))
+    assert sum(rows.numel() for _, _, rows in calls) == real
+    for name, n_rows, rows in calls:
+        per = n_rows // k
+        assert not (rows % per == per - 1).any(), (name, n_rows)
+        assert rows.unique().numel() == rows.numel(), (name, n_rows)

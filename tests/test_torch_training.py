@@ -25,6 +25,7 @@ the port's backends to the reference's tiled trainer):
       `--sync-mode dense|ring` tests/test_torch_sync.py's)
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -54,6 +55,7 @@ from repro_torch.gnn import models as tm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.tiling import prepare_tiled_edges  # noqa: E402
 from repro_torch.launch import gnn_serve, gnn_train  # noqa: E402
+from repro_torch.obs import load_trace  # noqa: E402
 from repro_torch.optim import adam_init, adam_update  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -425,19 +427,21 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--resume"], ["--ckpt-dir", "DIR"],
-                                  ["--trace", "x"], ["--out-json", "x"],
+                                  ["--trace", "TRACE"], ["--out-json", "x"],
                                   ["--inject-fault", "crash@step:1"]])
 def test_cli_refuses_unported_flags(argv, tmp_path, capsys):
-    """The checkpoint and fault flags parse and run on the CPU (an
-    injected crash raises `WorkerCrash` from `run` after the FATAL line);
-    the reference CLI's flags the port has not ported (traces, study rows)
-    are not parsed, and `run` refuses them naming their ROADMAP item before
-    any work starts."""
-    argv = [str(tmp_path / "ck") if a == "DIR" else a for a in argv]
+    """The checkpoint, fault and trace flags parse and run on the CPU (an
+    injected crash raises `WorkerCrash` from `run` after the FATAL line;
+    `--trace` writes the timeline and its report); the reference CLI's
+    flag the port has not ported (study rows) is not parsed, and `run`
+    refuses it naming its ROADMAP item before any work starts."""
+    argv = [str(tmp_path / "ck") if a == "DIR" else
+            str(tmp_path / "t.json") if a == "TRACE" else a for a in argv]
+    assert set(gnn_train.NOT_PORTED) == {"--out-json"}
     if argv[0] in gnn_train.NOT_PORTED:
         with pytest.raises(SystemExit):
             gnn_train.parser().parse_args(TINY + argv)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
             gnn_train.run(TINY + argv + ["--device", "cpu"])
         return
     gnn_train.parser().parse_args(TINY + argv)
@@ -451,16 +455,31 @@ def test_cli_refuses_unported_flags(argv, tmp_path, capsys):
     out = gnn_train.run(cli)
     assert len(out.losses) == 2 and out.start_step == 0
     assert (out.checkpoints is not None) == (argv[0] == "--ckpt-dir")
+    assert (out.trace_report is not None) == (argv[0] == "--trace")
+    if out.trace_report is not None:
+        assert out.trace_report.exit_code == 0
+        load_trace(argv[1])
+        assert json.load(open(argv[1] + ".report.json"))["counts"][
+            "error"] == 0
     if out.checkpoints is not None:
         assert out.checkpoints.nbytes > 0
         assert len(out.checkpoints.save_seconds) == 2
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--out-json"])
-def test_serve_cli_refuses_unported_flags(flag):
+def test_serve_cli_refuses_unported_flags(flag, tmp_path):
+    """`--out-json` (study rows) is refused naming its ROADMAP item;
+    `--trace` is ported: it writes the timeline and a clean report."""
+    if flag == "--trace":
+        path = str(tmp_path / "serve.json")
+        out = gnn_serve.run(TINY + ["--smoke", "--device", "cpu",
+                                    f"{flag}={path}"])
+        assert out.trace_report.exit_code == 0
+        assert load_trace(path)["otherData"]["schema"] == "gnn-trace/v1"
+        return
     with pytest.raises(SystemExit):
         gnn_serve.parser().parse_args([flag, "x"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         gnn_serve.run([f"{flag}=x", "--device", "cpu"])
 
 

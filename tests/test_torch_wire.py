@@ -759,5 +759,5 @@ def test_cli_serves_with_bf16(capsys):
     assert run.report.fetch.wire_bytes * 2 == run.report.fetch.miss_bytes
     assert np.isfinite(run.report.logits).all()
     assert "(bf16)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        gnn_serve.run(TINY + ["--trace", "x"])
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        gnn_serve.run(TINY + ["--out-json", "x"])
