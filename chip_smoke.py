@@ -38,9 +38,14 @@ ends the script with a traceback and a non-zero exit:
                (combiner, rows, F) a GAT or SAGE mini-batch step launches;
                and phase 7's ring book is built on the host, its first
                stage's layout kept at every (combiner, rows, F) a GAT or
-               SAGE tiled ring step launches (rows 25,600 = 4 x 6,400).
+               SAGE tiled ring step launches (rows 25,600 = 4 x 6,400);
+               and phase 12's grid partitions (STUDY_GRID_METHODS) are
+               made on the host into its partition cache, the first
+               one's layer-wise layout kept at every (combiner, rows, F)
+               a GAT tiled pass launches (`study_shapes`).
   5. shapes  — every (combiner, rows, F) the kernel ran at in phase 4, or
-               that phase 7's ring or phase 8 will launch, again on the
+               that phase 7's ring, phase 8, phase 10's elastic run or
+               phase 12's serving grid will launch, again on the
                `local_dst` that phase 4 passed it (kept from its first
                launch), that the ring's first stage or phase 8's first
                batch holds, with random messages: the
@@ -190,18 +195,44 @@ ends the script with a traceback and a non-zero exit:
                serial). Prints event counts, timeline bytes, the phase
                means and the phase's seconds; the timelines go to
                chiprun_out/trace_*.json.
+ 12. study   — the paper's study (core/study.py, --out-json, the example
+               drivers). The rows that phases 4, 7 and 8's CLI runs wrote
+               with --out-json (GAT tiled serving, GAT tiled halo full
+               batch, serial GAT tiled mini batch; chiprun_out/
+               study_row_*.json) parse as strict JSON and equal the port's
+               serializer on inputs recomputed on the host from the run's
+               own book and counts: the key set, every computed column
+               `==`, the loss bit for bit, the `host_*` columns ==
+               `obs.phase_means` of the last epoch's steps. The study rows
+               that run a model at STUDY_SMALL (GAT and SAGE tiled, a
+               fresh partition cache each): `minibatch_row` with the
+               device step, serial and overlapped, `serve_row` under metis,
+               hep100 and a worker death, on the card == on the CPU on
+               every column outside `study.MEASURED_COLUMNS`. The grid
+               (this slice's path, STUDY_GRID): `minibatch_row` overlapped,
+               STUDY_GRID_STEPS steps, at phase 8's configuration and
+               `serve_row` at phase 4's, for random and metis on one
+               partition cache made before phase 5 (`study_shapes`: its
+               layer-wise layout is timed there), the launch counters set
+               to 0 before and read after each row; `minibatch_speedup`;
+               prints speedup, net %, remote %, hit rate, p50 / p99,
+               sustainable qps, the host phase means and each row's
+               seconds (metis beating random is printed, not gated). Then
+               both example drivers at their defaults on the card, one
+               process each, started together: exit 0 and their regime
+               lines.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
-entry per shape of phase 5 with the launches phases 4 and 7-11 made at
-that shape (phases 7-11 fail if they launched the kernel at a shape phase
-5 did not time)
+entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
+made at that shape (phases 7-12 fail if they launched the kernel at a
+shape phase 5 did not time)
 and one per (attention kernel, shape, dtype) of phase 6, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
-phase 10's under "robust", phase 11's under "trace") to
-chiprun_out/chip_smoke_train.json.
+phase 10's under "robust", phase 11's under "trace", phase 12's under
+"study") to chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
 each over a GAT tiled full-batch training step at the training phase's
@@ -221,6 +252,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -326,6 +358,31 @@ CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 # the final state of the CLI runs phase 10 resumes against (phases 7 and 9
 # keep it): run -> (parameters, EF carry), tensors on the card
 ORACLES: dict = {}
+# the study phase (12): the study rows that phases 4, 7 and 8's CLI runs
+# write with --out-json (STUDY_DIR/study_row_*.json), with what phase 12
+# recomputes them from on the host (kept by those phases: no device
+# tensors); the full-width grid's partition cache (`study_shapes` fills it
+# before phase 5); the grid's steps a mini-batch row (cut first if the
+# phase runs over its budget, never below 2), and the card-vs-CPU size
+STUDY_DIR = ROOT / "chiprun_out"
+STUDY_CLI: dict = {}
+STUDY_GRID_STEPS = 3
+STUDY_GRID_METHODS = ("random", "metis")
+# the grid's configuration: phase 8's (MB_WIDTH) for its mini-batch rows,
+# phase 4's (FULL_WIDTH) for its serving rows
+STUDY_GRID = {"graph": "OR", "scale": 1.0, "k": 4, "feature_dim": 512,
+              "hidden_dim": 512, "num_classes": 16, "num_layers": 3,
+              "batch": 1024, "qps": 100.0, "requests": 200, "hops": 1,
+              "fanout": 10, "max_batch": 32}
+STUDY_SMALL = {"graph": "OR", "scale": 0.02, "k": 4, "feature_dim": 16,
+               "hidden_dim": 8, "num_classes": 16, "num_layers": 2}
+STUDY_SMALL_DEATH = "worker-death@t:0.05,worker:1"
+STUDY_EXAMPLES = {
+    "torch_gnn_partitioning_study.py": ("DistGNN regime", "DistDGL regime",
+                                        "serving regime", "hit_rate"),
+    "torch_quickstart.py": ("tiled agg backend == scatter oracle",
+                            "minibatch cache=degree")}
+STUDY_EXAMPLE_ARGS: list = []  # the drivers' defaults: the card
 FULL_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
               "--k", "4", "--features", "512", "--hidden", "512",
               "--layers", "3", "--classes", "16", "--hops", "1",
@@ -687,19 +744,30 @@ def phase_serve(torch, spmm, gnn_serve) -> tuple[dict, dict, dict]:
     inputs of the first launch at each shape (for phase 5) and each tiled
     run's summary (phase 9's fp32 twins)."""
     main_launches, seen, summaries = {}, {}, {}
+    row_path = STUDY_DIR / "study_row_serve.json"
     for model in ("gat", "sage"):
+        # GAT's run also writes its study row (checked in phase 12)
+        out_json = ["--out-json", str(row_path)] if model == "gat" else []
         tiled, launches, summaries[model] = serve_once(
             torch, spmm, gnn_serve,
-            FULL_WIDTH + ["--model", model, "--agg-backend", "tiled"],
-            f"{model} tiled (the kernel)", seen)
+            FULL_WIDTH + ["--model", model, "--agg-backend", "tiled"]
+            + out_json, f"{model} tiled (the kernel)", seen)
         assert _launched(launches, "sum") > 0, f"{model}: sum never launched"
         if model == "gat":
             assert _launched(launches, "max") > 0, "gat: max never launched"
         main_launches[model] = launches
         emb, logits = tiled.embeddings, tiled.report.logits
         ids = tiled.report.served_ids
-        if model == "gat":  # phase 11's untraced twin
+        if model == "gat":  # phase 11's untraced twin, phase 12's row
             ORACLES["serve gat tiled"] = (emb, logits)
+            STUDY_CLI["serve gat tiled"] = {
+                "path": row_path, "argv": FULL_WIDTH + ["--model", model,
+                                                        "--agg-backend",
+                                                        "tiled"],
+                "report": tiled.report, "spec": tiled.spec,
+                "graph": tiled.graph, "book": tiled.inference.book,
+                "partition_time": tiled.partition_time,
+                "partition_quality": tiled.partition_quality}
         del tiled
         plain, launches, _ = serve_once(
             torch, spmm, gnn_serve,
@@ -1010,11 +1078,19 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
 
     def cli_run(sync):
         t0 = time.perf_counter()
+        # the halo run also writes its study row (checked in phase 12)
+        row_path = STUDY_DIR / "study_row_fullbatch.json"
+        argv = TRAIN_WIDTH + ["--model", "gat", "--agg-backend", "tiled",
+                              "--sync-mode", sync]
         with recording(spmm) as launches:
-            run = gnn_train.run(TRAIN_WIDTH + ["--model", "gat",
-                                               "--agg-backend", "tiled",
-                                               "--sync-mode", sync])
+            run = gnn_train.run(argv + (["--out-json", str(row_path)]
+                                        if sync == "halo" else []))
         base = run.trainer  # its book and blocks serve the runs below
+        if sync == "halo":
+            STUDY_CLI["fullbatch gat tiled halo"] = {
+                "path": row_path, "argv": argv, "losses": list(run.losses),
+                "spec": run.spec, "graph": run.graph, "book": base.book,
+                "assignment": run.assignment}
         record((sync, "gat", "tiled"), base, run.losses, run.step_seconds,
                launches, run.peak_memory, time.perf_counter() - t0)
         ORACLES[f"{sync} gat tiled"] = (_param_tensors(base),
@@ -1311,10 +1387,17 @@ def phase_minibatch(torch, spmm, ref, tiling, gnn_train, minibatch, models,
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    # the run also writes its study row (checked in phase 12)
+    row_path = STUDY_DIR / "study_row_minibatch.json"
+    argv = MB_WIDTH + ["--model", "gat", "--agg-backend", "tiled"]
     with recording(spmm) as launches:
-        run = gnn_train.run(MB_WIDTH + ["--model", "gat",
-                                        "--agg-backend", "tiled"])
+        run = gnn_train.run(argv + ["--out-json", str(row_path)])
     base = run.trainer
+    STUDY_CLI["minibatch gat tiled serial"] = {
+        "path": row_path, "argv": argv, "step_metrics": run.step_metrics,
+        "spec": run.spec, "graph": run.graph, "book": base.book,
+        "cache_sizes": base.store.cache_sizes.copy(),
+        "assignment": run.assignment}
     ORACLES["minibatch gat tiled"] = _param_tensors(base)  # phase 11's twin
     assert len(run.step_metrics) >= MB_STEPS and run.estimate.step_time > 0
     record(("gat", "tiled", "serial"), base.spec, base.plan,
@@ -2215,6 +2298,328 @@ def phase_trace(torch, spmm, tiling, gnn_train, gnn_serve, gnn_trace, obs,
     return results, main_launches
 
 
+# --------------------------------------------------------------- phase 12
+def _strict_rows(path) -> list:
+    """A study file's rows, parsed as strict JSON: a NaN or Infinity token
+    raises."""
+    def refuse(name):
+        raise ValueError(f"{path}: non-strict JSON token {name}")
+    return json.loads(Path(path).read_text(), parse_constant=refuse)
+
+
+def _as_written(study, rows, name) -> list:
+    """`rows` as `study.write_rows` writes them (STUDY_DIR/name), parsed
+    back: non-finite floats become null, numpy scalars numbers."""
+    path = STUDY_DIR / name
+    study.write_rows(rows, str(path))
+    return _strict_rows(path)
+
+
+def _same_row(got, want, measured, what) -> None:
+    """Two written rows: one key set, every column outside `measured`
+    equal (`==`)."""
+    assert set(got) == set(want), (
+        f"{what}: columns differ: {sorted(set(got) ^ set(want))}")
+    diff = {c: (got[c], want[c]) for c in want
+            if c not in measured and got[c] != want[c]}
+    assert not diff, f"{what}: {diff}"
+
+
+def _grid_spec(models):
+    gr = STUDY_GRID
+    return models.GNNSpec(
+        model="gat", feature_dim=gr["feature_dim"],
+        hidden_dim=gr["hidden_dim"], num_classes=gr["num_classes"],
+        num_layers=gr["num_layers"], agg_backend="tiled")
+
+
+def study_shapes(torch, study, inference, book_mod, tiling, models,
+                 seen) -> object:
+    """The full-width grid's partitions made before phase 5, on the host,
+    into the partition cache phase 12 then uses (`minibatch_row`'s
+    training mask, so its vertex partitions are the grid's). Serving's
+    layer-wise inference runs once a cache (its embeddings are memoised
+    across methods), on the first method's layout: that layout joins
+    `seen` at every (combiner, rows, F) a GAT tiled pass launches, so
+    phase 5 times it. The grid's mini-batch steps launch at phase 8's
+    rows (the pad plan depends on the batch and fanouts only), which
+    `minibatch_shapes` adds. Returns the cache."""
+    gr = STUDY_GRID
+    cache = study.StudyCache()
+    g = cache.graph(gr["graph"], gr["scale"], 0)
+    # the draw `study.minibatch_row` makes before it partitions
+    mask = np.random.default_rng(1234).random(g.num_vertices) < 0.3
+    for method in STUDY_GRID_METHODS:
+        rec = cache.vertex_partition(g, method, gr["k"], 0, mask)
+        say(f"[study] {method}: partitioned in {rec.partition_time:.2f}s, "
+            f"edge cut {rec.metrics.edge_cut:.4f}")
+    first = cache.vertex_partition(g, STUDY_GRID_METHODS[0], gr["k"], 0,
+                                   mask)
+    book = book_mod.build_edge_book(
+        g, inference.edge_assignment_from_vertex(g, first.assignment),
+        gr["k"], tiled_layout=True)
+    rows = gr["k"] * tiling.tiled_shape(book.v_max + 1, 256)[0]
+    ldst = torch.as_tensor(book.agg_ldst.reshape(-1), device="cuda")
+    keys = [(c, rows, f) for c, f in expected_launches(_grid_spec(models), 1)]
+    for key in keys:
+        seen.setdefault(key, (ldst, torch.float32,
+                              {"tile_v": 256, "block_e": 512}))
+    say(f"[study] serving grid's layer-wise layout "
+        f"({STUDY_GRID_METHODS[0]}): shapes {keys}; "
+        f"{_padding(book.agg_ldst.reshape(-1))}")
+    return cache
+
+
+def study_cli_rows(study, obs, gnn_train, gnn_serve, cost_model,
+                   metrics) -> dict:
+    """The rows phases 4, 7 and 8's CLI runs wrote with --out-json, each
+    parsed as strict JSON and held to the port's serializer on inputs
+    recomputed on the host from the run's own book and counts: the key
+    set, every computed column `==`, the loss bit for bit, the `host_*`
+    columns == `obs.phase_means` of the last epoch's steps."""
+    measured = set(study.MEASURED_COLUMNS)
+    out = {}
+
+    c = STUDY_CLI["fullbatch gat tiled halo"]
+    [row] = _strict_rows(c["path"])
+    args = gnn_train.parser().parse_args(c["argv"])
+    want = study.fullbatch_result_row(
+        args.graph, args.partitioner, args.k, c["spec"],
+        metrics=metrics.edge_partition_metrics(c["graph"], c["assignment"],
+                                               args.k),
+        partition_time=row["partition_time"],
+        est=cost_model.fullbatch_epoch(c["book"], c["spec"],
+                                       codec=args.codec),
+        sync_mode=args.sync_mode, codec=args.codec)
+    want["loss"] = c["losses"][-1]
+    [want] = _as_written(study, [want], "study_row_fullbatch.recomputed.json")
+    _same_row(row, want, measured, "full-batch CLI row")
+    assert row["loss"] == c["losses"][-1], (row["loss"], c["losses"])
+    out["fullbatch"] = row
+
+    c = STUDY_CLI["minibatch gat tiled serial"]
+    [row] = _strict_rows(c["path"])
+    args = gnn_train.parser().parse_args(c["argv"])
+    g, _, _, mask, _ = gnn_train.problem(args)
+    per_epoch = max(int(mask.sum()) // args.batch, 1)
+    sms = c["step_metrics"]
+    assert len(sms) % per_epoch == 0, (len(sms), per_epoch)
+    last = sms[-per_epoch:]
+
+    def mean(name):
+        return np.stack([getattr(s, name) for s in last]).mean(axis=0)
+
+    inputs, remote, hits, misses = (mean("input_vertices"),
+                                    mean("remote_vertices"),
+                                    mean("cache_hits"), mean("remote_misses"))
+    est = cost_model.minibatch_step(
+        inputs, remote, mean("edges"), c["book"].sizes, c["spec"],
+        seeds_per_worker=max(args.batch // args.k, 1),
+        remote_miss_vertices=misses, cached_vertices=c["cache_sizes"],
+        codec=args.codec)
+    host = obs.phase_means(last)
+    want = study.minibatch_result_row(
+        args.graph, args.partitioner, args.k, c["spec"],
+        metrics=metrics.vertex_partition_metrics(g, c["assignment"], args.k,
+                                                 mask),
+        partition_time=row["partition_time"], batch=args.batch,
+        inputs=inputs, remote=remote, hits=hits, misses=misses, est=est,
+        steps_per_epoch=per_epoch, cache_policy=args.cache_policy,
+        cache_budget=args.cache_budget, overlap=args.overlap,
+        prefetch_depth=args.prefetch_depth, host_times=host,
+        codec=args.codec)
+    want["loss"] = float(np.mean([s.loss for s in last]))
+    [want] = _as_written(study, [want], "study_row_minibatch.recomputed.json")
+    _same_row(row, want, measured, "mini-batch CLI row")
+    assert row["loss"] == want["loss"], (row["loss"], want["loss"])
+    for col, value in host.items():
+        assert row[col] == value, (col, row[col], value)
+    out["minibatch"] = row
+
+    c = STUDY_CLI["serve gat tiled"]
+    [row] = _strict_rows(c["path"])
+    args = gnn_serve.parser().parse_args(c["argv"])
+    g, book, rep = c["graph"], c["book"], c["report"]
+    # the replication factor from the run's own edge book: local vertices
+    # over the vertices any edge covers
+    covered = np.unique(np.concatenate([g.src, g.dst])).shape[0]
+    rf = float(book.vmask.sum() / max(covered, 1))
+    assert rf == c["partition_quality"] == row["partition_quality"], (
+        rf, c["partition_quality"], row["partition_quality"])
+    want = study.serve_result_row(
+        args.graph, args.partitioner, args.k, c["spec"], rep, qps=args.qps,
+        hops=args.hops, fanout=args.fanout, max_batch=args.batch,
+        max_wait=args.max_wait, cache_policy=args.cache_policy,
+        cache_budget=args.cache_budget, partition_time=row["partition_time"],
+        partition_quality=rf, codec=args.codec)
+    [want] = _as_written(study, [want], "study_row_serve.recomputed.json")
+    _same_row(row, want, measured, "serving CLI row")
+    assert row["host_mean"] == float(rep.host_time.mean())
+    out["serve"] = row
+    for name, r in out.items():
+        say(f"[study] CLI row {name}: {len(r)} columns, strict JSON, "
+            f"computed columns == the serializer on host inputs"
+            + (f", loss {r['loss']!r}" if "loss" in r else "")
+            + f", partition {r['partition_time']:.3f}s")
+    return out
+
+
+def study_card_vs_cpu(study, models, fault_plan) -> dict:
+    """The study rows that run a model, at STUDY_SMALL (GAT and SAGE
+    tiled), each with a fresh partition cache, on the card and on the
+    CPU: `minibatch_row(run_device_step=True)` serial and overlapped,
+    `serve_row` under metis (vertex) and hep100 (edge) and under a worker
+    death. Every column outside MEASURED_COLUMNS equal."""
+    measured = set(study.MEASURED_COLUMNS)
+    sm = STUDY_SMALL
+    where = dict(scale=sm["scale"])
+    held = {}
+    for model in ("gat", "sage"):
+        spec = models.GNNSpec(
+            model=model, feature_dim=sm["feature_dim"],
+            hidden_dim=sm["hidden_dim"], num_classes=sm["num_classes"],
+            num_layers=sm["num_layers"], agg_backend="tiled")
+
+        def mb(overlap):
+            return lambda dev: study.minibatch_row(
+                sm["graph"], "metis", sm["k"], spec, run_device_step=True,
+                overlap=overlap, cache=study.StudyCache(), device=dev,
+                **where)
+
+        def serve(method, death=False):
+            return lambda dev: study.serve_row(
+                sm["graph"], method, sm["k"], spec, n_requests=80,
+                qps=400.0, cache=study.StudyCache(), device=dev,
+                fault_plan=(fault_plan.parse([STUDY_SMALL_DEATH])
+                            if death else None),
+                detect_delay=0.005 if death else 0.0, **where)
+
+        calls = {"minibatch serial": mb(False),
+                 "minibatch overlap": mb(True),
+                 "serve metis": serve("metis"),
+                 "serve hep100": serve("hep100"),
+                 "serve hep100 worker-death": serve("hep100", death=True)}
+        for name, call in calls.items():
+            what = f"{model} {name}"
+            card, cpu = _as_written(study, [call("cuda"), call("cpu")],
+                                    "study_rows_small.json")
+            _same_row(card, cpu, measured, f"{what}, card vs cpu")
+            held[what] = len(card)
+            if "worker-death" in name:
+                assert card["rerouted"] > 0 and card["requests"] == 80
+    say(f"[study] card == cpu on every computed column ({len(held)} rows, "
+        f"OR {sm['scale']}, k={sm['k']}, widths {sm['feature_dim']} / "
+        f"{sm['hidden_dim']}): {held}")
+    return held
+
+
+def study_grid(torch, spmm, study, models, cache) -> tuple[dict, dict]:
+    """This slice's path at full width on the card: `minibatch_row` (GAT
+    tiled, phase 8's configuration, overlapped, STUDY_GRID_STEPS steps)
+    and `serve_row` (phase 4's configuration) for each of
+    STUDY_GRID_METHODS on one partition cache, then `minibatch_speedup`.
+    Prints the paper's columns and each row's seconds. Returns the rows
+    and each run's launches (the counters set to 0 just before and read
+    just after)."""
+    gr, spec = STUDY_GRID, _grid_spec(models)
+    where = dict(scale=gr["scale"], cache=cache, device="cuda")
+    rows, seconds, launches = {}, {}, {}
+    for method in STUDY_GRID_METHODS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with recording(spmm) as n:
+            rows[f"minibatch {method}"] = study.minibatch_row(
+                gr["graph"], method, gr["k"], spec,
+                global_batch=gr["batch"], steps=STUDY_GRID_STEPS,
+                run_device_step=True, overlap=True, **where)
+        seconds[f"minibatch {method}"] = time.perf_counter() - t0
+        assert n, f"study minibatch {method} never launched the kernel"
+        launches[f"study minibatch {method}"] = n
+    for method in STUDY_GRID_METHODS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with recording(spmm) as n, torch.inference_mode():
+            rows[f"serve {method}"] = study.serve_row(
+                gr["graph"], method, gr["k"], spec, qps=gr["qps"],
+                n_requests=gr["requests"], hops=gr["hops"],
+                fanout=gr["fanout"], max_batch=gr["max_batch"], **where)
+        seconds[f"serve {method}"] = time.perf_counter() - t0
+        assert n, f"study serve {method} never launched the kernel"
+        launches[f"study serve {method}"] = n
+    speed = {r["method"]: r for r in study.minibatch_speedup(
+        [rows[f"minibatch {m}"] for m in STUDY_GRID_METHODS])}
+    for method in STUDY_GRID_METHODS:
+        r, s = speed[method], rows[f"serve {method}"]
+        say(f"[study] {method}: mini batch speedup {r['speedup']:.4f}x, net "
+            f"{r['net_pct_random']:.2f}%, remote {r['remote_pct_random']:.2f}"
+            f"% of random ({r['remote_vertices']:.1f} remote vertices a "
+            f"step), hit rate {r['hit_rate']:.3f}, modeled step "
+            f"{r['step_time'] * 1e3:.2f} ms, host phases (s) sample "
+            f"{r['host_sample_time']:.4f} fetch {r['host_fetch_time']:.4f} "
+            f"transfer {r['host_transfer_time']:.4f} compute "
+            f"{r['host_compute_time']:.4f} wall {r['host_step_wall']:.4f} "
+            f"overlap efficiency {r['overlap_efficiency']:.3f}, row "
+            f"{seconds[f'minibatch {method}']:.1f}s; serving cut "
+            f"{s['partition_quality']:.4f}, p50 "
+            f"{s['latency_p50'] * 1e3:.3f} ms p99 "
+            f"{s['latency_p99'] * 1e3:.3f} ms, sustainable "
+            f"{s['qps_sustainable']:.0f} qps, hit rate {s['hit_rate']:.3f}, "
+            f"host {s['host_mean'] * 1e3:.3f} ms/batch, row "
+            f"{seconds[f'serve {method}']:.1f}s")
+    rows = _as_written(study, list(speed.values())
+                       + [rows[f"serve {m}"] for m in STUDY_GRID_METHODS],
+                       "study_rows_grid.json")
+    return {"rows": rows, "seconds": seconds}, launches
+
+
+def study_examples() -> dict:
+    """Both example drivers at their defaults on the card, as a user runs
+    them (one process each, started together): each exits 0 and prints
+    the lines tests/test_torch_examples.py asserts."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    try:
+        for script in STUDY_EXAMPLES:
+            procs[script] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / script),
+                 *STUDY_EXAMPLE_ARGS],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=ROOT))
+        out = {}
+        for script, (t0, proc) in procs.items():
+            text, _ = proc.communicate(timeout=300)
+            out[script] = time.perf_counter() - t0
+            assert proc.returncode == 0, f"{script}: exit {proc.returncode}" \
+                f"\n{text[-3000:]}"
+            for line in STUDY_EXAMPLES[script]:
+                assert line in text, f"{script}: no {line!r}\n{text[-3000:]}"
+            say(f"[study] {script}: exit 0 in {out[script]:.1f}s; "
+                + " | ".join(text.strip().splitlines()[-3:]))
+        return out
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_study(torch, spmm, study, obs, models, gnn_train, gnn_serve,
+                cost_model, metrics, fault_plan, cache) -> tuple[dict, dict]:
+    """The paper's study on the card (core/study.py, --out-json, the
+    example drivers): the CLI rows of phases 4, 7 and 8, the study rows
+    that run a model on the card == on the CPU, the full-width grid, and
+    both examples. Returns the results and the grid's launches."""
+    t_phase = time.perf_counter()
+    results = {"cli_rows": study_cli_rows(study, obs, gnn_train, gnn_serve,
+                                          cost_model, metrics)}
+    results["card_vs_cpu"] = study_card_vs_cpu(study, models, fault_plan)
+    results["grid"], launches = study_grid(torch, spmm, study, models, cache)
+    results["examples_seconds"] = study_examples()
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[study] phase 12 {results['phase_seconds']:.1f}s")
+    return results, launches
+
+
 # ---------------------------------------------------------------- phase 5
 def phase_shapes(torch, spmm, seen) -> dict:
     """The kernel at every shape phase 4 launched it at, on that launch's
@@ -2799,6 +3204,9 @@ def main() -> int:
     from repro_torch.gnn import fullbatch, minibatch, models
     from repro_torch.kernels import ref
     from repro_torch.launch import gnn_serve, gnn_trace, gnn_train
+    from repro_torch.core import cost_model, metrics, study
+    from repro_torch.fault import FaultPlan
+    from repro_torch.gnn import inference
 
     resolve_device("cuda")
     t_start = time.perf_counter()
@@ -2813,14 +3221,19 @@ def main() -> int:
         return 0
     rows_out = phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod)
     say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
+    STUDY_DIR.mkdir(exist_ok=True)
     launches, seen, serve_fp32 = phase_serve(torch, spmm, gnn_serve)
     say(f"[time] serve {time.perf_counter() - t_start:.1f}s")
     minibatch_shapes(torch, gnn_train, minibatch, partition_vertices, tiling,
                      seen)
     ring_shapes(torch, gnn_train, fullbatch, tiling, seen)
     elastic_rows = elastic_shapes(torch, gnn_train, fullbatch, tiling, seen)
-    say(f"[time] mini-batch, ring and elastic shapes "
-        f"{time.perf_counter() - t_start:.1f}s")
+    t_grid = time.perf_counter()
+    study_cache = study_shapes(torch, study, inference, book_mod, tiling,
+                               models, seen)
+    t_grid = time.perf_counter() - t_grid
+    say(f"[time] mini-batch, ring, elastic and study shapes "
+        f"{time.perf_counter() - t_start:.1f}s (study {t_grid:.1f}s)")
     shapes = phase_shapes(torch, spmm, seen)
     say(f"[time] shapes {time.perf_counter() - t_start:.1f}s")
     seen.clear()
@@ -2844,8 +3257,14 @@ def main() -> int:
         torch, spmm, tiling, gnn_train, gnn_serve, gnn_trace, obs, fullbatch,
         models, optim, train)
     say(f"[time] trace {time.perf_counter() - t_start:.1f}s")
+    train["study"], study_launches = phase_study(
+        torch, spmm, study, obs, models, gnn_train, gnn_serve, cost_model,
+        metrics, FaultPlan, study_cache)
+    train["study"]["shapes_seconds"] = t_grid
+    say(f"[time] study {time.perf_counter() - t_start:.1f}s")
     for run, n in {**train_launches, **mb_launches, **codec_launches,
-                   **robust_launches, **trace_launches}.items():
+                   **robust_launches, **trace_launches,
+                   **study_launches}.items():
         assert set(n) <= set(shapes), (
             f"{run} launched the kernel at shapes phase 5 did not time: "
             f"{sorted(set(n) - set(shapes))}")
@@ -2854,6 +3273,7 @@ def main() -> int:
     launches.update(codec_launches)
     launches.update(robust_launches)
     launches.update(trace_launches)
+    launches.update(study_launches)
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():
@@ -2866,7 +3286,7 @@ def main() -> int:
             # launches at this shape over the GAT and SAGE tiled serving,
             # full-batch and mini-batch training runs, with and without a
             # lossy codec, crashed, resumed, retried, rescaled or failed
-            # over, traced
+            # over, traced, or in the study grid
             "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "E_tiled": row["E_tiled"],

@@ -16,9 +16,10 @@ reader, and the modeled service time is priced from the encoded bytes.
 `--trace PATH` records the run's timeline to PATH (Chrome trace-event
 JSON, schema gnn-trace/v1: inference layers and the real gather/compute
 spans on the host process, the request lifecycle on the simulated clock)
-and the reconciliation report to PATH.report.json. Study rows
-(`--out-json`, ROADMAP queue 1, item 2) are not yet ported and are
-refused.
+and the reconciliation report to PATH.report.json. `--out-json PATH`
+writes the run's study-format row (`study.serve_result_row`, strict JSON)
+with the partition's quality: the replication factor under an edge
+partitioner, the edge cut under a vertex one.
 
 `--inject-fault worker-death@t:T,worker:W` kills serving worker W at
 virtual time T: its unanswered requests fail over to the survivors after
@@ -33,6 +34,8 @@ kinds.
       --scale 0.05 --partitioner hep100 --k 4 --model sage --qps 100 --smoke
   PYTHONPATH=src python -m repro_torch.launch.gnn_serve --graph OR \
       --scale 0.05 --k 4 --smoke --inject-fault worker-death@t:1.0,worker:1
+  PYTHONPATH=src python -m repro_torch.launch.gnn_serve --graph OR \
+      --scale 0.05 --partitioner metis --k 4 --smoke --out-json row.json
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import study
 from repro_torch.core.cost_model import PAPER_CLUSTER
 from repro_torch.core.device import DEVICES, resolve_device
 from repro_torch.core.edge_partition import EDGE_PARTITIONERS, partition_edges
@@ -59,11 +63,7 @@ from repro_torch.fault.recovery import failover_assignment
 from repro_torch.gnn.feature_store import CACHE_POLICIES, RowStore
 from repro_torch.gnn.inference import LayerwiseInference, edge_assignment_from_vertex
 from repro_torch.gnn.models import GNNSpec, init_params
-from repro_torch.launch.gnn_train import (
-    NOT_PORTED,
-    refuse_not_ported,
-    write_traced_run,
-)
+from repro_torch.launch.gnn_train import write_traced_run
 from repro_torch.obs import Tracer, get_tracer, install, reconcile
 from repro_torch.serve.engine import ServingReport, build_serving, run_serving_sim
 
@@ -113,6 +113,9 @@ def parser() -> argparse.ArgumentParser:
                     choices=list(CACHE_POLICIES))
     ap.add_argument("--cache-budget", type=int, default=0,
                     help="cached remote embedding rows per worker")
+    ap.add_argument("--out-json", default="", metavar="PATH",
+                    help="write the study-format serving row here "
+                         "(core/study.py serializer, strict JSON)")
     ap.add_argument("--trace", default="", metavar="PATH",
                     help="record the span/counter timeline to PATH (Chrome "
                          "trace-event JSON, schema gnn-trace/v1: inference "
@@ -147,6 +150,9 @@ class ServeRun:
     inference: LayerwiseInference
     report: ServingReport
     store: RowStore              # the embedding store the requests read
+    partition_time: float = 0.0  # seconds, host clock, around partitioning
+    # replication factor (edge partitioner) or edge cut (vertex one)
+    partition_quality: Optional[float] = None
     fault_plan: Optional[FaultPlan] = None  # the --inject-fault plan, if any
     tracer: Optional[Tracer] = None         # the run's tracer under --trace
     trace_report: Optional[object] = None   # its ReconcileReport
@@ -155,7 +161,6 @@ class ServeRun:
 def run(argv: Optional[list] = None) -> ServeRun:
     """Parse `argv` (default: sys.argv[1:]) and serve; prints a report."""
     argv = sys.argv[1:] if argv is None else argv
-    refuse_not_ported(argv, NOT_PORTED)
     args = parser().parse_args(argv)
     if args.smoke:
         args.requests = min(args.requests, 200)
@@ -205,6 +210,7 @@ def _serve(args, device, plan) -> ServeRun:
                                           seed=args.seed)
         pt = time.perf_counter() - t0
         m = edge_partition_metrics(g, edge_assignment, args.k)
+        quality = m.replication_factor
         print(f"[serve] edge-partitioned in {pt:.2f}s: "
               f"rf={m.replication_factor:.2f} edge_bal={m.edge_balance:.2f}")
         owner = None  # derived from masters below
@@ -212,6 +218,7 @@ def _serve(args, device, plan) -> ServeRun:
         owner = partition_vertices(g, args.k, args.partitioner, seed=args.seed)
         pt = time.perf_counter() - t0
         m = vertex_partition_metrics(g, owner, args.k)
+        quality = m.edge_cut
         print(f"[serve] vertex-partitioned in {pt:.2f}s: "
               f"edge_cut={m.edge_cut:.3f} vertex_bal={m.vertex_balance:.2f}")
         edge_assignment = edge_assignment_from_vertex(g, owner)
@@ -292,8 +299,18 @@ def _serve(args, device, plan) -> ServeRun:
               f"({report.served()}/{args.requests})")
         if not answered:
             sys.exit(1)
+    if args.out_json:
+        row = study.serve_result_row(
+            args.graph, args.partitioner, args.k, spec, report,
+            qps=args.qps, hops=args.hops, fanout=args.fanout,
+            max_batch=args.batch, max_wait=args.max_wait,
+            cache_policy=args.cache_policy, cache_budget=args.cache_budget,
+            partition_time=pt, partition_quality=quality, codec=args.codec)
+        study.write_rows([row], args.out_json)
+        print(f"[serve] wrote study row -> {args.out_json}")
     return ServeRun(graph=g, spec=spec, embeddings=embeddings,
                     inference=engine, report=report, store=store,
+                    partition_time=pt, partition_quality=quality,
                     fault_plan=plan)
 
 

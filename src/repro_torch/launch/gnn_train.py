@@ -28,8 +28,11 @@ epoch. `--trace PATH` installs the tracer (obs/trace.py) for the run and
 writes its timeline to PATH (Chrome trace-event JSON, schema
 gnn-trace/v1) and the measured-vs-model reconciliation to
 PATH.report.json (obs/reconcile.py; fault accounting too under
-`--inject-fault`). Study rows (`--out-json`, ROADMAP queue 1, item 2) are
-not yet ported and are refused.
+`--inject-fault`). `--out-json PATH` writes the run's study-format row
+(core/study.py, strict JSON): full batch `fullbatch_result_row` with the
+final loss; mini batch `minibatch_result_row` over the last epoch's steps
+(the cost model re-run on their mean counts, the measured `host_*` phase
+means, the epoch's mean loss; a run that trains no epoch writes none).
 
 Robustness, as the reference CLI has it: `--ckpt-dir` checkpoints params,
 optimizer state, the lossy codec's EF carry and the run coordinates (full
@@ -61,6 +64,9 @@ exit code 3 (`CRASH_EXIT`).
       --scale 0.05 --k 4 --ckpt-dir ck --resume
   PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
       --scale 0.05 --k 4 --trace trace.json   # + trace.json.report.json
+  PYTHONPATH=src python -m repro_torch.launch.gnn_train --graph OR \\
+      --scale 0.05 --partitioner metis --k 4 --regime minibatch \\
+      --out-json row.json
 """
 
 from __future__ import annotations
@@ -81,6 +87,7 @@ from repro_torch.ckpt.checkpoint import (
     checkpoint_extra,
     tree_nbytes,
 )
+from repro_torch.core import study
 from repro_torch.core.cost_model import (
     FullBatchEstimate,
     MiniBatchEstimate,
@@ -126,19 +133,6 @@ TRAIN_ALLOC_CONF = "expandable_segments:True"
 # 1e-3; the reference CLI passes neither)
 DEFAULT_LR = {"fullbatch": 1e-2, "minibatch": 1e-3}
 CRASH_EXIT = 3  # injected worker crash (distinct from real failures)
-# the reference CLI's flags this port refuses, with the ROADMAP queue 1
-# item that ports them; the parser does not know them either
-NOT_PORTED = {"--out-json": "study rows: ROADMAP queue 1, item 2"}
-
-
-def refuse_not_ported(argv: list, flags) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for the first
-    of `flags` (keys of NOT_PORTED) that `argv` passes."""
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in flags:
-            raise NotImplementedError(
-                f"{flag} ({NOT_PORTED[flag]}) is not yet ported")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -211,6 +205,9 @@ def parser() -> argparse.ArgumentParser:
                          "full batch diverges at 1e-2; 1e-3, the default of "
                          "Adam's paper (Kingma & Ba, ICLR 2015, Algorithm "
                          "1), does not")
+    ap.add_argument("--out-json", default="", metavar="PATH",
+                    help="write the run's study-format row here "
+                         "(core/study.py serializers, strict JSON)")
     ap.add_argument("--trace", default="", metavar="PATH",
                     help="record the run's span/counter timeline to PATH "
                          "(Chrome trace-event JSON, schema gnn-trace/v1; "
@@ -270,7 +267,6 @@ class TrainRun:
 def run(argv: Optional[list] = None) -> TrainRun:
     """Parse `argv` (default: sys.argv[1:]) and train; prints a report."""
     argv = sys.argv[1:] if argv is None else argv
-    refuse_not_ported(argv, NOT_PORTED)
     args = parser().parse_args(argv)
     allowed = (EDGE_PARTITIONERS if args.regime == "fullbatch"
                else VERTEX_PARTITIONERS)
@@ -490,6 +486,14 @@ def _fullbatch(args, device, lr, g, spec, feats, labels, train_mask, ckpt,
               f"({seconds[-1]:.2f}s on {device})")
         if ckpt is not None:
             ckpt.save(epoch, tr, {"epoch": epoch})
+    if args.out_json:
+        row = study.fullbatch_result_row(
+            args.graph, partitioner, args.k, spec, metrics=m,
+            partition_time=pt, est=est, sync_mode=args.sync_mode,
+            codec=args.codec)
+        row["loss"] = losses[-1] if losses else float("nan")
+        study.write_rows([row], args.out_json)
+        print(f"[gnn] wrote study row -> {args.out_json}")
     return TrainRun(graph=g, spec=spec, assignment=assignment, trainer=tr,
                     estimate=est, losses=losses, step_seconds=seconds,
                     peak_memory=_peak(device), start_step=start_epoch)
@@ -531,6 +535,7 @@ def _minibatch(args, device, lr, g, spec, feats, labels, train_mask, ckpt,
               f"budget={args.cache_budget}/worker "
               f"(filled {tr.store.cache_sizes.tolist()})")
     sms: "list[StepMetrics]" = []
+    epoch_sms: "list[StepMetrics]" = []  # the last epoch's, for the row
     est = None
     gstep = next_step
     try:
@@ -577,11 +582,45 @@ def _minibatch(args, device, lr, g, spec, feats, labels, train_mask, ckpt,
                   f"({time.perf_counter()-t1:.2f}s)")
     finally:
         tr.close()
+    if args.out_json and not epoch_sms:
+        print("[gnn] --out-json needs at least one trained epoch; "
+              "no row written")
+    elif args.out_json:
+        _write_minibatch_row(args, tr, spec, m, pt, steps_per_epoch,
+                             epoch_sms)
     return TrainRun(graph=g, spec=spec, assignment=assignment, trainer=tr,
                     estimate=est, losses=[s.loss for s in sms],
                     step_seconds=[s.step_wall_host for s in sms],
                     peak_memory=_peak(device), step_metrics=sms,
                     start_step=next_step)
+
+
+def _write_minibatch_row(args, tr, spec, metrics, pt, steps_per_epoch,
+                         sms) -> None:
+    """Write the mini-batch study row of the last epoch's steps `sms`: the
+    per-worker counts averaged over them (as `study.minibatch_row`
+    averages its steps), the cost model re-run on those means, their
+    measured host phase means and mean loss."""
+    inputs = np.stack([s.input_vertices for s in sms]).mean(axis=0)
+    remote = np.stack([s.remote_vertices for s in sms]).mean(axis=0)
+    edges = np.stack([s.edges for s in sms]).mean(axis=0)
+    hits = np.stack([s.cache_hits for s in sms]).mean(axis=0)
+    misses = np.stack([s.remote_misses for s in sms]).mean(axis=0)
+    est = minibatch_step(
+        inputs, remote, edges, tr.book.sizes, spec,
+        seeds_per_worker=max(args.batch // args.k, 1),
+        remote_miss_vertices=misses, cached_vertices=tr.store.cache_sizes,
+        codec=args.codec)
+    row = study.minibatch_result_row(
+        args.graph, args.partitioner, args.k, spec, metrics=metrics,
+        partition_time=pt, batch=args.batch, inputs=inputs, remote=remote,
+        hits=hits, misses=misses, est=est, steps_per_epoch=steps_per_epoch,
+        cache_policy=args.cache_policy, cache_budget=args.cache_budget,
+        overlap=args.overlap, prefetch_depth=args.prefetch_depth,
+        host_times=study.host_phase_means(sms), codec=args.codec)
+    row["loss"] = float(np.mean([s.loss for s in sms]))
+    study.write_rows([row], args.out_json)
+    print(f"[gnn] wrote study row -> {args.out_json}")
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -85,13 +85,16 @@ def _imported_modules(path: pathlib.Path):
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("banned", ["jax", "repro"])
 def test_port_imports_neither_jax_nor_the_jax_package(banned):
     files = _port_files()
     assert (ROOT / "chip_smoke.py").is_file()
+    assert {ROOT / "examples" / "torch_quickstart.py",
+            ROOT / "examples" / "torch_gnn_partitioning_study.py"} <= set(files)
     assert len(files) > 20
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)

@@ -1,8 +1,9 @@
 """The port's observability layer (`repro_torch.obs`, `gnn_trace`) against
 the JAX package's, on the CPU.
 
-  (a) twins of tests/test_obs.py's tracer, export and reconcile tests (all
-      but the two that need `core/study.py`), on the port's trainers; the
+  (a) twins of tests/test_obs.py's tracer, export, reconcile and study
+      tests, on the port's trainers (the serving row also held to the
+      reference's, every computed column exactly); the
       reference's "tracer installed after the step compiled" case has no
       compile here: its twin pins that a tracer installed after step 1
       records step 2's forward in full
@@ -399,6 +400,47 @@ def _serving_run(node_setup, requests=80, ref=False):
         device=CPU, **kw)
     report = run_serving_sim(engines, batchers, owner, ids, arrivals)
     return report, store
+
+
+def test_phase_means_matches_study(node_setup):
+    from repro_torch.core import study
+
+    _, ms = _minibatch(node_setup, steps=3)
+    assert study.host_phase_means(ms) == phase_means(ms)
+    pm = phase_means(ms)
+    assert set(pm) == {"host_sample_time", "host_fetch_time",
+                       "host_transfer_time", "host_compute_time",
+                       "host_step_wall", "overlap_efficiency"}
+
+
+def test_serve_result_row_breakdown_columns(node_setup):
+    from repro.core import study as j_study
+    from repro_torch.core import study
+
+    report, _ = _serving_run(node_setup)
+    kw = dict(qps=300.0, hops=1, fanout=6, max_batch=8, max_wait=5e-4,
+              cache_policy="none", cache_budget=0, partition_time=0.0,
+              partition_quality=1.0)
+    row = study.serve_result_row("OR", "hep100", 2,
+                                 tm.GNNSpec(model="sage", **DIMS), report,
+                                 **kw)
+    for col in ("queue_wait_p50", "queue_wait_p99", "queue_wait_mean",
+                "service_p50", "service_p99", "service_mean_req",
+                "p99_queue_share"):
+        assert col in row, col
+    # queue wait + service == latency, so the breakdown means must close
+    assert (row["queue_wait_mean"] + row["service_mean_req"]
+            == pytest.approx(row["latency_mean"], rel=1e-9))
+    assert 0.0 <= row["p99_queue_share"] <= 1.0
+    # the reference's row of the same run: every modeled column equal
+    jreport, _ = _serving_run(node_setup, ref=True)
+    want = j_study.serve_result_row("OR", "hep100", 2,
+                                    jm.GNNSpec(model="sage", **DIMS),
+                                    jreport, **kw)
+    assert set(row) == set(want)
+    assert {c: v for c, v in row.items() if c not in study.MEASURED_COLUMNS
+            } == {c: v for c, v in want.items()
+                  if c not in study.MEASURED_COLUMNS}
 
 
 def test_reconcile_serving_exact(node_setup):

@@ -427,23 +427,18 @@ def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--resume"], ["--ckpt-dir", "DIR"],
-                                  ["--trace", "TRACE"], ["--out-json", "x"],
+                                  ["--trace", "TRACE"], ["--out-json", "ROW"],
                                   ["--inject-fault", "crash@step:1"]])
 def test_cli_refuses_unported_flags(argv, tmp_path, capsys):
-    """The checkpoint, fault and trace flags parse and run on the CPU (an
-    injected crash raises `WorkerCrash` from `run` after the FATAL line;
-    `--trace` writes the timeline and its report); the reference CLI's
-    flag the port has not ported (study rows) is not parsed, and `run`
-    refuses it naming its ROADMAP item before any work starts."""
+    """The port refuses none of the reference CLI's flags: the checkpoint,
+    fault, trace and study-row flags parse and run on the CPU (an injected
+    crash raises `WorkerCrash` from `run` after the FATAL line; `--trace`
+    writes the timeline and its report; `--out-json` writes one strict-JSON
+    full-batch study row with the run's final loss)."""
     argv = [str(tmp_path / "ck") if a == "DIR" else
-            str(tmp_path / "t.json") if a == "TRACE" else a for a in argv]
-    assert set(gnn_train.NOT_PORTED) == {"--out-json"}
-    if argv[0] in gnn_train.NOT_PORTED:
-        with pytest.raises(SystemExit):
-            gnn_train.parser().parse_args(TINY + argv)
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            gnn_train.run(TINY + argv + ["--device", "cpu"])
-        return
+            str(tmp_path / "t.json") if a == "TRACE" else
+            str(tmp_path / "row.json") if a == "ROW" else a for a in argv]
+    assert not hasattr(gnn_train, "NOT_PORTED")
     gnn_train.parser().parse_args(TINY + argv)
     cli = TINY + argv + ["--device", "cpu", "--epochs", "2"]
     if argv[0] == "--inject-fault":
@@ -464,23 +459,33 @@ def test_cli_refuses_unported_flags(argv, tmp_path, capsys):
     if out.checkpoints is not None:
         assert out.checkpoints.nbytes > 0
         assert len(out.checkpoints.save_seconds) == 2
+    if argv[0] == "--out-json":
+        [row] = json.loads(open(argv[1]).read(), parse_constant=_no_constant)
+        assert row["loss"] == out.losses[-1] and row["method"] == "hep100"
+        assert row["epoch_time"] == out.estimate.epoch_time
+        assert "wrote study row" in capsys.readouterr().out
+
+
+def _no_constant(name):
+    raise ValueError(f"non-strict JSON token {name}")
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--out-json"])
 def test_serve_cli_refuses_unported_flags(flag, tmp_path):
-    """`--out-json` (study rows) is refused naming its ROADMAP item;
-    `--trace` is ported: it writes the timeline and a clean report."""
+    """The serving CLI refuses none of the reference's flags: `--trace`
+    writes the timeline and a clean report; `--out-json` writes one
+    strict-JSON serving row carrying the run's partition quality."""
+    path = str(tmp_path / "out.json")
+    out = gnn_serve.run(TINY + ["--smoke", "--device", "cpu",
+                                f"{flag}={path}"])
     if flag == "--trace":
-        path = str(tmp_path / "serve.json")
-        out = gnn_serve.run(TINY + ["--smoke", "--device", "cpu",
-                                    f"{flag}={path}"])
         assert out.trace_report.exit_code == 0
         assert load_trace(path)["otherData"]["schema"] == "gnn-trace/v1"
         return
-    with pytest.raises(SystemExit):
-        gnn_serve.parser().parse_args([flag, "x"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        gnn_serve.run([f"{flag}=x", "--device", "cpu"])
+    [row] = json.loads(open(path).read(), parse_constant=_no_constant)
+    assert row["regime"] == "serve" and row["requests"] == 200
+    assert row["partition_quality"] == out.partition_quality > 1.0
+    assert row["latency_p99"] == out.report.p99()
 
 
 def test_main_asks_for_expandable_segments(monkeypatch):

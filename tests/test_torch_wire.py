@@ -28,6 +28,7 @@ Same NumPy inputs through both packages, at tests/test_wire.py's sizes (OR
 """
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -753,11 +754,15 @@ def test_cli_trains_with_int8(capsys, regime):
     assert "int8" in out and ("wire/step" in out or "wire " in out)
 
 
-def test_cli_serves_with_bf16(capsys):
+def test_cli_serves_with_bf16(capsys, tmp_path):
+    path = tmp_path / "row.json"
     run = gnn_serve.run(TINY + ["--model", "gat", "--agg-backend", "tiled",
-                                "--smoke", "--codec", "bf16"])
+                                "--smoke", "--codec", "bf16",
+                                "--out-json", str(path)])
     assert run.report.fetch.wire_bytes * 2 == run.report.fetch.miss_bytes
     assert np.isfinite(run.report.logits).all()
     assert "(bf16)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        gnn_serve.run(TINY + ["--out-json", "x"])
+    # the study row carries the codec and both byte columns
+    [row] = json.loads(path.read_text())
+    assert row["codec"] == "bf16"
+    assert row["wire_bytes"] * 2 == row["miss_bytes"] > 0
