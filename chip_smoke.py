@@ -221,6 +221,18 @@ ends the script with a traceback and a non-zero exit:
                both example drivers at their defaults on the card, one
                process each, started together: exit 0 and their regime
                lines.
+ 13. lint    — the static-analysis gate (analysis/, `gnn_lint`), each run
+               a fresh process, all six started together: `gnn_lint
+               --smoke --device cuda` exits 0 with no error, the five
+               rules and every program of the CPU grid, no `pallas` cell
+               skipped, and every cell that is scatter-free on the card
+               (the pallas cells, the tiled ring and mini-batch cells)
+               recorded with segment-reduce launches; each of the five
+               `--inject-violation` runs on `--grid tiny` exits 1 with
+               errors of its own rule alone. The reports go to
+               chiprun_out/gnn_lint_*.json; their launches (the fixture's
+               tiny shapes, in their own processes) stay out of the
+               kernels line. Prints the phase's seconds.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
@@ -232,7 +244,7 @@ name and power limit, and as the last line
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
 phase 10's under "robust", phase 11's under "trace", phase 12's under
-"study") to chiprun_out/chip_smoke_train.json.
+"study", phase 13's under "lint") to chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
 each over a GAT tiled full-batch training step at the training phase's
@@ -2620,6 +2632,92 @@ def phase_study(torch, spmm, study, obs, models, gnn_train, gnn_serve,
     return results, launches
 
 
+# ---------------------------------------------------------------- phase 13
+LINT_DIR = ROOT / "chiprun_out"
+LINT_DEVICE = "cuda"
+LINT_RULES = ("collective-budget", "donation", "dtype-policy", "no-scatter",
+              "retrace-guard")
+
+
+def _lint_report(name, proc, path, want_rc) -> dict:
+    text, _ = proc.communicate(timeout=600)
+    assert proc.returncode == want_rc, (
+        f"gnn_lint {name}: exit {proc.returncode}, want {want_rc}\n"
+        f"{text[-3000:]}")
+    report = json.loads(Path(path).read_text())
+    assert report["schema"] == "gnn-lint-report/v1", name
+    assert set(report["rules"]) == set(LINT_RULES), (name, report["rules"])
+    say(f"[lint] {name}: exit {proc.returncode}; "
+        + next(line for line in text.splitlines()
+               if line.startswith("gnn_lint:")))
+    return report
+
+
+def phase_lint() -> dict:
+    """`gnn_lint --smoke` on the card and the five seeded violations on
+    its tiny grid, six fresh processes started together (each warms its
+    own process before the retrace sweeps count builds)."""
+    from repro_torch.analysis.programs import build_programs
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    LINT_DIR.mkdir(exist_ok=True)
+    runs = {"smoke": ["--smoke"]}
+    runs.update({rule: ["--grid", "tiny", "--inject-violation", rule]
+                 for rule in LINT_RULES})
+    procs, paths = {}, {}
+    try:
+        for name, argv in runs.items():
+            paths[name] = LINT_DIR / f"gnn_lint_{name}.json"
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.gnn_lint", *argv,
+                 "--device", LINT_DEVICE, "--out-json", str(paths[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=ROOT)
+        smoke = _lint_report("smoke", procs["smoke"], paths["smoke"], 0)
+        for rule in LINT_RULES:
+            report = _lint_report(f"--inject-violation {rule}", procs[rule],
+                                  paths[rule], 1)
+            errs = [f for f in report["findings"] if f["level"] == "error"]
+            assert errs and all(f["rule"] == rule for f in errs), (rule, errs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert smoke["counts"]["error"] == 0, smoke["counts"]
+    # the grid's names do not depend on the device; on the CPU the pallas
+    # cells are skipped, on the card none may be
+    grid = build_programs("smoke", device=LINT_DEVICE)
+    assert smoke["programs"] == [p.name for p in grid], smoke["programs"]
+    skipped = [f["program"] for f in smoke["findings"]
+               if f["message"].startswith("skipped")]
+    assert not skipped, f"cells skipped on the card: {skipped}"
+    scatter = {f["program"]: f for f in smoke["findings"]
+               if f["rule"] == "no-scatter"}
+    free = [p.name for p in grid
+            if p.kind == "ops" and p.expect_scatter_free]
+    assert len(free) == 11 and all(
+        "-pallas-" in n or "-tiled-ring-" in n or n.endswith("sage-tiled-fp32")
+        for n in free), free
+    launches = {}
+    for name in free:
+        f = scatter[name]
+        assert f["level"] == "info" and f["message"] == "scatter-free", f
+        launches[name] = f["data"]["kernel_launches"].get(
+            "kernel:segment_reduce", 0)
+        assert launches[name] > 0, (name, f)
+    say(f"[lint] scatter-free on the card with segment-reduce launches: "
+        f"{launches}")
+    results = {"counts": smoke["counts"], "elapsed_s": smoke["elapsed_s"],
+               "programs": len(smoke["programs"]),
+               "scatter_free_launches": launches,
+               "phase_seconds": time.perf_counter() - t_phase}
+    say(f"[lint] phase 13 {results['phase_seconds']:.1f}s (gnn_lint --smoke "
+        f"{smoke['elapsed_s']}s of rules)")
+    return results
+
+
 # ---------------------------------------------------------------- phase 5
 def phase_shapes(torch, spmm, seen) -> dict:
     """The kernel at every shape phase 4 launched it at, on that launch's
@@ -3262,6 +3360,8 @@ def main() -> int:
         metrics, FaultPlan, study_cache)
     train["study"]["shapes_seconds"] = t_grid
     say(f"[time] study {time.perf_counter() - t_start:.1f}s")
+    train["lint"] = phase_lint()
+    say(f"[time] lint {time.perf_counter() - t_start:.1f}s")
     for run, n in {**train_launches, **mb_launches, **codec_launches,
                    **robust_launches, **trace_launches,
                    **study_launches}.items():

@@ -8,6 +8,9 @@ is built at import, so the CPU tests import every module without nvcc. A
 failed build raises. Builds of different libraries may run at once (each is
 its own nvcc process writing to its own file): `build_all` starts them
 together.
+`BUILDS` counts, per library, the nvcc builds this process ran and the
+libraries it loaded: the port's only compiles, which `gnn_lint`'s
+retrace guard (`analysis.rules.count_builds`) holds to 0 in a warm sweep.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable
@@ -26,6 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# nvcc builds and library loads per (library name, "build" | "load")
+BUILDS: Counter = Counter()
 
 
 def nvcc() -> str:
@@ -82,6 +89,7 @@ class CudaLibrary:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{self.build_log}")
         os.replace(tmp, lib_path)
+        BUILDS[(self.name, "build")] += 1
         return lib_path
 
     def load(self) -> ctypes.CDLL:
@@ -93,6 +101,7 @@ class CudaLibrary:
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._lib = lib
+            BUILDS[(self.name, "load")] += 1
         return self._lib
 
     def check(self, rc: int, what: str) -> None:

@@ -36,6 +36,37 @@ from repro_torch.kernels.tiling import DEFAULT_BLOCK_E, DEFAULT_TILE_V, tiled_sh
 AGG_BACKENDS = ("scatter", "tiled", "pallas")
 AGG_REDUCES = ("sum", "max")
 
+# The aten ops that accumulate data-dependently, which the no-scatter rule
+# hunts for in recorded programs (analysis/dispatch.py names them
+# "<namespace>.<op>"; an `index_put` with accumulate=True is recorded as
+# "<op>:accumulate"). A plain `index_put_` is an `.at[].set`, which the
+# reference does not count either. On the card these ops add in atomic
+# order, so no kernel path may issue one.
+SCATTER_PRIMITIVES = (
+    "aten.index_add", "aten.index_add_",
+    "aten.scatter_add", "aten.scatter_add_",
+    "aten.scatter_reduce", "aten.scatter_reduce_",
+    "aten.index_reduce", "aten.index_reduce_",
+    "aten.index_put:accumulate", "aten.index_put_:accumulate",
+    "aten._index_put_impl_:accumulate",
+)
+
+
+def scatter_free_traced(backend: str, device) -> bool:
+    """Whether `aggregate(backend=...)` runs WITHOUT data-dependent
+    accumulating ops on `device`; the twin of the reference's predicate,
+    from which the no-scatter rule derives each program's expectation.
+
+    "pallas" always launches the kernel (and raises on a CPU tensor), so
+    it is scatter-free wherever it runs. "tiled" launches the kernel on a
+    CUDA tensor, while a CPU tensor takes the plain version, whose
+    `index_add_` (`ref.segment_sum_ref`) is a scatter: the reference's
+    tiled backend falls back the same way off the TPU. "scatter" is the
+    oracle by definition."""
+    if backend == "pallas":
+        return True
+    return backend == "tiled" and torch.device(device).type == "cuda"
+
 
 def segment_spmm(
     messages: torch.Tensor,

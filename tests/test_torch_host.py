@@ -129,6 +129,19 @@ def test_tiled_layout_identical(case):
             == t_tiling.tiled_shape(700, kw.get("tile_v", 256)))
 
 
+def test_copied_api_surface_identical():
+    """Names the port copies with the reference's API although no port
+    path reads them yet: the tile constants and the per-step input-vertex
+    balance (paper §5.2)."""
+    assert ((t_tiling.DEFAULT_BLOCK_E, t_tiling.DEFAULT_TILE_V,
+             t_tiling.DEFAULT_TILE_F)
+            == (j_tiling.DEFAULT_BLOCK_E, j_tiling.DEFAULT_TILE_V,
+                j_tiling.DEFAULT_TILE_F))
+    counts = np.random.default_rng(5).integers(1, 900, 8)
+    assert_same(j_metrics.input_vertex_balance(counts),
+                t_metrics.input_vertex_balance(counts))
+
+
 @pytest.mark.parametrize("tiled", [True, False])
 @pytest.mark.parametrize("fanouts", [(10,), (5, 5)])
 def test_microbatcher_batches_identical(graphs, tiled, fanouts):
