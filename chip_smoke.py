@@ -233,18 +233,46 @@ ends the script with a traceback and a non-zero exit:
                chiprun_out/gnn_lint_*.json; their launches (the fixture's
                tiny shapes, in their own processes) stay out of the
                kernels line. Prints the phase's seconds.
+ 14. lm      — the LM serving path (models/layers.py, models/lm.py,
+               launch/serve.py) at qwen3-4b's full width (36 layers,
+               d_model 2560, 32 / 8 heads, head dim 128, d_ff 9728, vocab
+               151,936, bf16; random weights from seed 0) through
+               `serve.serve(smoke=False)`: batch 8, prompt 2048, 64
+               tokens, the routes and both kernels' launch counters set to
+               0 before and read after: the flash kernel launched 36 times
+               at (BH 256, S 2048, D 128, bf16, causal), the decode kernel
+               36 x 63 times at (BH 256, S 2112), the plain route never.
+               Prints prefill seconds, decode ms a token a sequence,
+               tokens per second, peak memory and the card; each launched
+               shape's kernel / plain / SDPA / bound ms (held against its
+               plain version), the decode step's GQA repeat of one
+               layer's cache, and the shares of prefill and of a decode
+               step they take; a warm prefill and decode step run with
+               every synchronising operation an error
+               (`torch.cuda.set_sync_debug_mode`; shown to reject a step
+               that copies from the host), then their wall, device
+               busy time (torch.profiler), idle share and top device ops
+               (`lm_breakdown`). Then, with the depth cut to 2
+               layers (LM_CUT: batch 2, prompt 1024, 4 teacher-forced
+               decode steps), bf16 and fp32: the kernel route twice (bitwise
+               equal) against the plain route, logits at `_lm_tol`, the
+               check shown to reject a zeroed attention output; and
+               prefill-then-decode consistency (tests/test_arch_smoke.py's
+               check) on the kernel route.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
 made at that shape (phases 7-12 fail if they launched the kernel at a
-shape phase 5 did not time)
-and one per (attention kernel, shape, dtype) of phase 6, then the card's
+shape phase 5 did not time),
+one per (attention kernel, shape, dtype) of phase 6, and one per (kernel,
+shape, dtype) phase 14's full-width run launched, then the card's
 name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
 phase 10's under "robust", phase 11's under "trace", phase 12's under
-"study", phase 13's under "lint") to chiprun_out/chip_smoke_train.json.
+"study", phase 13's under "lint", phase 14's under "lm") to
+chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
 each over a GAT tiled full-batch training step at the training phase's
@@ -2718,6 +2746,423 @@ def phase_lint() -> dict:
     return results
 
 
+
+# --------------------------------------------------------------- phase 14
+# the LM serving path: qwen3-4b at full width (src/repro/configs/qwen3_4b.py:
+# 36 layers, d_model 2560, 32 heads / 8 KV heads, head dim 128, d_ff 9728,
+# vocab 151,936, bf16), random weights from seed 0, through
+# `repro_torch.launch.serve.serve`
+LM_ARCH = "qwen3-4b"
+LM_SERVE = {"batch": 8, "prompt_len": 2048, "gen": 64}
+# kernel route against plain route, and prefill-then-decode: the full
+# widths with the depth cut to 2 layers, batch 2, a 1024-token prompt and 4
+# teacher-forced decode steps, weights from one generator
+LM_CUT = {"num_layers": 2, "batch": 2, "prompt_len": 1024, "steps": 4}
+# warm decode steps timed for the breakdown (their median)
+LM_STEPS_TIMED = 8
+# the kernel route's logits against the plain route's (`_lm_tol`): fp32
+# at tests/test_kernels.py's 2e-5, of each logit and of the largest; bf16
+# at its 3e-2 / 0.15. A zeroed attention output moves the logits by O(1)
+# and fails both (`lm_kernel_vs_plain` shows it each run)
+LM_F32_TOL = 2e-5
+# prefill-then-decode at bf16: the reference's own check's tolerance
+# (tests/test_arch_smoke.py:84, "bf16 accumulation-order differences")
+LM_CONSISTENCY_BF16 = 0.15
+LM_DEVICE = "cuda"
+
+
+def _lm_tol(dtype, plain) -> tuple[float, float]:
+    """(rtol, atol) of logits against the plain route's `plain`."""
+    if dtype == "bfloat16":
+        return ATTN_TOL["bfloat16"]
+    return LM_F32_TOL, LM_F32_TOL * max(1.0, float(plain.float().abs().max()))
+
+
+def _hold_logits(torch, name, got, plain, dtype) -> float:
+    """Hold a run's logits against the plain route's at `_lm_tol`; returns
+    the max abs error."""
+    rtol, atol = _lm_tol(dtype, plain)
+    assert got.shape == plain.shape and got.dtype == plain.dtype, name
+    assert bool(torch.isfinite(got.float()).all()), f"{name}: not finite"
+    torch.testing.assert_close(got.float(), plain.float(), rtol=rtol,
+                               atol=atol, msg=lambda m: f"{name}: {m}")
+    return _max_abs_err(torch, got, plain)
+
+
+@contextlib.contextmanager
+def _zeroed_attention(layers):
+    """Every `layers.attention` call returns zeros of its output's shape
+    (the models look the function up at each call)."""
+    orig = layers.attention
+
+    def zeroed(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        return out.new_zeros(out.shape)
+
+    layers.attention = zeroed
+    try:
+        yield
+    finally:
+        layers.attention = orig
+
+
+def lm_cut_run(torch, lm, cfg, params, tokens, use_pallas):
+    """Prefill over the cut's prompt, then its teacher-forced decode steps:
+    the logits stacked [steps + 1, B, V]."""
+    s, steps = LM_CUT["prompt_len"], LM_CUT["steps"]
+    with torch.inference_mode():
+        logits, caches = lm.prefill(cfg, params, {"tokens": tokens[:, :s]},
+                                    max_len=s + steps, use_pallas=use_pallas)
+        outs = [logits]
+        for t in range(steps):
+            logits, caches = lm.decode_step(
+                cfg, params, tokens[:, s + t:s + t + 1], caches, s + t,
+                use_pallas=use_pallas)
+            outs.append(logits)
+    return torch.stack(outs)
+
+
+def lm_kernel_vs_plain(torch, lm, layers, cfg) -> dict:
+    """At LM_CUT, bf16 and fp32: the kernel route twice (bitwise equal,
+    every attention call on a kernel) and the plain route, logits held at
+    `_lm_tol`, the check shown to reject a zeroed attention output; then
+    prefill-then-decode consistency on the kernel route."""
+    out = {}
+    b, s, steps = LM_CUT["batch"], LM_CUT["prompt_len"], LM_CUT["steps"]
+    n_layers = LM_CUT["num_layers"]
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + steps)),
+                             device=LM_DEVICE)
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, num_layers=n_layers, dtype=dtype)
+        params = lm.init_params(
+            c, torch.Generator(device=LM_DEVICE).manual_seed(1), LM_DEVICE)
+        layers.ROUTES.clear()
+        kern = lm_cut_run(torch, lm, c, params, tokens, None)
+        routes = dict(layers.ROUTES)
+        assert routes == {"flash": n_layers, "decode": n_layers * steps}, \
+            routes
+        again = lm_cut_run(torch, lm, c, params, tokens, None)
+        assert torch.equal(kern, again), f"lm {dtype}: kernel runs differ"
+        plain = lm_cut_run(torch, lm, c, params, tokens, False)
+        err = {f"step {i}": _hold_logits(torch, f"lm {dtype} step {i}",
+                                         kern[i], plain[i], dtype)
+               for i in range(steps + 1)}
+        with _zeroed_attention(layers):
+            zeroed = lm_cut_run(torch, lm, c, params, tokens, None)
+        try:
+            _hold_logits(torch, f"lm {dtype} zeroed", zeroed, plain, dtype)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"lm {dtype}: the tolerance passes a run "
+                                 "whose attention output is zeroed")
+        zero_err = _max_abs_err(torch, zeroed, plain)
+        # prefill-then-decode: decoding token s after a prefill of s tokens
+        # gives the logits of a prefill over s + 1 tokens
+        with torch.inference_mode():
+            _, caches = lm.prefill(c, params, {"tokens": tokens[:, :s]},
+                                   max_len=s + 8)
+            dec, _ = lm.decode_step(c, params, tokens[:, s:s + 1], caches, s)
+            full, _ = lm.prefill(c, params, {"tokens": tokens[:, :s + 1]},
+                                 max_len=s + 8)
+        if dtype == "bfloat16":
+            torch.testing.assert_close(
+                dec.float(), full.float(), rtol=LM_CONSISTENCY_BF16,
+                atol=LM_CONSISTENCY_BF16)
+        else:
+            _hold_logits(torch, "lm float32 prefill-then-decode", dec, full,
+                         dtype)
+        consistency = _max_abs_err(torch, dec, full)
+        out[dtype] = {"max_abs_err": err, "zeroed_max_abs_err": zero_err,
+                      "consistency_max_abs_err": consistency,
+                      "logit_max": float(plain.float().abs().max())}
+        say(f"[lm] kernel vs plain {dtype} (2 layers, batch {b}, prompt {s},"
+            f" {steps} decode steps): max |err| by step "
+            + ", ".join(f"{e:.3g}" for e in err.values())
+            + f" (largest |logit| {out[dtype]['logit_max']:.3g}); zeroed "
+            f"attention {zero_err:.3g}, rejected; prefill-then-decode "
+            f"{consistency:.3g}")
+        del params, kern, again, plain, zeroed
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_kernel_entries(torch, flash, decode, layers, cfg, launches) -> tuple:
+    """The kernels line's entries for the (kernel, shape, dtype) pairs the
+    full-width run launched, each against its plain version on inputs of
+    that shape (K/V drawn with the config's KV heads and repeated), with
+    kernel / plain / SDPA / bound ms; and the decode step's GQA repeat of
+    one layer's cache, timed."""
+    F = torch.nn.functional
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b, s, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    entries, rows = [], []
+    # ---- prefill: every layer's flash call
+    q, k, v = _attn_inputs(torch, (b, h, s, d), (b, h, s, d), torch.bfloat16,
+                           3, kv_heads=kvh)
+    fold = lambda x: x.reshape(b * h, x.shape[2], d)  # noqa: E731
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    out = flash.flash_attention(qf, kf, vf, causal=True)
+    plain = flash.flash_attention_plain(qf, kf, vf, causal=True)
+    err, rel, tol = _hold_attn(torch, "lm prefill", out, plain, "bfloat16", s)
+    del plain
+    ms = _time_ms(torch, lambda: flash.flash_attention(qf, kf, vf,
+                                                       causal=True), 10)
+    plain_ms = _time_ms(torch, lambda: flash.flash_attention_plain(
+        qf, kf, vf, causal=True), 3)
+    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 10)
+    bound_ms, bound_by = _attn_bound("bfloat16", b * h, s, s, d, causal=True)
+    key = (b * h, s, s, d, "bfloat16", True)
+    entries.append(_attn_entry(
+        f"flash_attention[bfloat16,BH={b * h},S={s},D={d},causal]",
+        "flash_attention.cu", "src/repro/kernels/flash_attention.py:32",
+        launches["flash"][key], err, ms, plain_ms, bound_ms, bound_by,
+        library_ms))
+    rows.append(dict(entries[-1], tol=tol, row_rel_err=rel))
+    del q, k, v, qf, kf, vf, out
+    torch.cuda.empty_cache()
+    # ---- decode: every layer's decode call at the last step's cache
+    cache = s + gen
+    valid = cache - 1
+    q, k, v = _attn_inputs(torch, (b, h, d), (b, h, cache, d),
+                           torch.bfloat16, 4, kv_heads=kvh)
+    qf, kf, vf = q.reshape(b * h, d), fold(k), fold(v)
+    valid_t = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    out = decode.decode_attention(qf, kf, vf, valid_t)
+    plain = decode.decode_attention_plain(qf, kf, vf, valid)
+    err, rel, tol = _hold_attn(torch, "lm decode", out, plain, "bfloat16",
+                               valid)
+    ms = _time_ms(torch, lambda: decode.decode_attention(qf, kf, vf,
+                                                         valid_t), 20)
+    plain_ms = _time_ms(torch, lambda: decode.decode_attention_plain(
+        qf, kf, vf, valid_t), 5)
+    q4, ks, vs = q[:, :, None], k[:, :, :valid], v[:, :, :valid]
+    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, ks, vs), 20)
+    bound_ms, bound_by = _attn_bound("bfloat16", b * h, 1, cache, d,
+                                     valid=valid)
+    key = (b * h, cache, d, "bfloat16")
+    entries.append(_attn_entry(
+        f"decode_attention[bfloat16,BH={b * h},S={cache},valid={valid},"
+        f"D={d}]", "decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:26", launches["decode"][key],
+        err, ms, plain_ms, bound_ms, bound_by, library_ms))
+    rows.append(dict(entries[-1], tol=tol, row_rel_err=rel))
+    # the decode route's GQA repeat: one layer's K (or V) cache, [b, kvh,
+    # cache, d], copied to [b, h, cache, d] before the kernel reads it
+    small = k[:, ::h // kvh].contiguous()
+    repeat_ms = _time_ms(torch, lambda: layers._repeat_kv(small, h // kvh),
+                         20)
+    del q, k, v, qf, kf, vf, out, plain, small, ks, vs, q4
+    torch.cuda.empty_cache()
+    for e in entries:
+        say(f"[lm] {e['name']}: launches {e['launches']}, err "
+            f"{e['max_abs_err']:.3g}, ms {e['ms']:.4f} plain "
+            f"{e['plain_ms']:.4f} sdpa {e['library_ms']:.4f} bound "
+            f"{e['bound_ms']:.4f} ({e['bound_by']})")
+    return entries, rows, repeat_ms
+
+
+def _device_busy(torch, fn, top: int = 6) -> tuple[float, list]:
+    """Run `fn` once under torch.profiler: the summed device time of its
+    kernels, copies and sets (ms; one stream, so they do not overlap) and
+    the `top` device ops by time, [name, ms]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in dev) / 1e3,
+            [[e.key[:70], e.self_device_time_total / 1e3] for e in dev[:top]])
+
+
+@contextlib.contextmanager
+def _no_sync(torch):
+    """Raise on any operation that waits for the card (a value read back,
+    a copy from pageable host memory) inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def _per_call_rope_copy(torch, layers):
+    """RoPE's table copied from host memory at every call, the fault the
+    no-sync check guards against (`layers._rope_freqs_on` keeps it on the
+    card)."""
+    orig = layers._rope_freqs_on
+    layers._rope_freqs_on = lambda head_dim, theta, device: torch.as_tensor(
+        layers.rope_freqs(head_dim, theta).astype(np.float32), device=device)
+    try:
+        yield
+    finally:
+        layers._rope_freqs_on = orig
+
+
+def lm_breakdown(torch, lm, layers, cfg) -> dict:
+    """Where a warm prefill and a warm decode step of the full-width run go:
+    their wall (host clock, ending in a synchronise; the decode step the
+    median of LM_STEPS_TIMED), the device's busy time under torch.profiler
+    and its idle share (1 - busy / wall), the aten ops each dispatches, and
+    the top device ops. A warm
+    prefill and decode step first run once with every synchronising
+    operation made an error: neither waits for the card (and a step
+    that copies RoPE's table from the host at every call is shown to
+    fail it)."""
+    from repro_torch.analysis.dispatch import record as record_ops
+
+    b, s = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    params = lm.init_params(
+        cfg, torch.Generator(device=LM_DEVICE).manual_seed(0), LM_DEVICE)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, s)), dtype=torch.int32,
+        device=LM_DEVICE)}
+    max_len = s + LM_SERVE["gen"]
+    out = {}
+    with torch.inference_mode():
+        run_prefill = lambda: lm.prefill(  # noqa: E731
+            cfg, params, batch, max_len=max_len)
+        run_prefill()
+        torch.cuda.synchronize()
+        with _no_sync(torch):
+            run_prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = run_prefill()
+        torch.cuda.synchronize()
+        walls = {"prefill": time.perf_counter() - t0}
+        tokens = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        idx = torch.full((), s, dtype=torch.int32, device=LM_DEVICE)
+        step = lambda: lm.decode_step(  # noqa: E731
+            cfg, params, tokens, caches, idx)
+        step()
+        torch.cuda.synchronize()
+        with _no_sync(torch):
+            step()
+        torch.cuda.synchronize()
+        try:
+            with _per_call_rope_copy(torch, layers), _no_sync(torch):
+                step()
+        except RuntimeError as exc:
+            say(f"[lm] the no-sync check rejects a per-call host copy: "
+                f"{str(exc).splitlines()[0][:100]}")
+        else:
+            raise AssertionError("the no-sync check passes a decode step "
+                                 "that copies from the host every call")
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(LM_STEPS_TIMED):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls["decode_step"] = float(np.median(times))
+        for name, fn in (("prefill", run_prefill), ("decode_step", step)):
+            busy_ms, top = _device_busy(torch, fn)
+            # the host's work: the aten ops the call dispatches
+            n_ops = sum(not op.name.startswith("kernel:")
+                        for op in record_ops(fn))
+            out[name] = {"wall_ms": walls[name] * 1e3, "busy_ms": busy_ms,
+                         "idle_share": 1 - busy_ms / (walls[name] * 1e3),
+                         "aten_ops": n_ops, "top": top}
+            say(f"[lm] warm {name}: wall {walls[name] * 1e3:.3f} ms, device "
+                f"busy {busy_ms:.3f} ms, idle share "
+                f"{out[name]['idle_share']:.3f}, {n_ops} aten ops "
+                f"({walls[name] * 1e6 / n_ops:.2f} us of wall each); top "
+                "device ops (ms): "
+                + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return out
+
+def phase_lm(torch, flash, decode, smi) -> tuple[list, dict]:
+    """Phase 14: the LM serving path (models/, launch/serve.py) at full
+    width, its launches and routes, kernel route == plain route, and
+    prefill-then-decode at the cut. Returns (the kernels line's entries,
+    results)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import layers, lm
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    b, s, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
+    n_layers, h, d = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash.LAUNCHES.clear()
+    decode.LAUNCHES.clear()
+    layers.ROUTES.clear()
+    t0 = time.perf_counter()
+    seqs, t_prefill, t_decode = lm_serve.serve(
+        LM_ARCH, smoke=False, device=LM_DEVICE, **LM_SERVE)
+    wall = time.perf_counter() - t0
+    launches = {"flash": dict(flash.LAUNCHES),
+                "decode": dict(decode.LAUNCHES)}
+    routes = dict(layers.ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    flash_key = (b * h, s, s, d, "bfloat16", True)
+    decode_key = (b * h, s + gen, d, "bfloat16")
+    assert launches["flash"] == {flash_key: n_layers}, launches
+    assert launches["decode"] == {decode_key: n_layers * (gen - 1)}, launches
+    assert routes == {"flash": n_layers, "decode": n_layers * (gen - 1)}, \
+        f"routes {routes}: the plain route was taken"
+    seqs = seqs.cpu()
+    assert seqs.shape == (b, gen), seqs.shape
+    assert int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size
+    per_tok_ms = t_decode / (gen - 1) / b * 1e3
+    results = {
+        "arch": LM_ARCH, "params": cfg.param_count(), **LM_SERVE,
+        "prefill_s": t_prefill, "decode_s": t_decode,
+        "decode_ms_per_token_per_seq": per_tok_ms,
+        "decode_step_ms": t_decode / (gen - 1) * 1e3,
+        "decode_tokens_per_s": b * (gen - 1) / t_decode,
+        "prefill_tokens_per_s": b * s / t_prefill,
+        "serve_wall_s": wall, "peak_bytes": peak,
+        "launches": {k: {str(kk): n for kk, n in v.items()}
+                     for k, v in launches.items()},
+        "routes": routes, "sample": seqs[0, :16].tolist(), "card": smi}
+    say(f"[lm] {LM_ARCH} full width ({cfg.param_count():,} parameters, "
+        f"{n_layers} layers, bf16): batch {b}, prompt {s}, {gen} tokens; "
+        f"prefill {t_prefill:.4f}s ({results['prefill_tokens_per_s']:.0f} "
+        f"tokens/s), decode {t_decode:.4f}s ({per_tok_ms:.4f} ms/token/seq, "
+        f"{results['decode_tokens_per_s']:.1f} tokens/s, step "
+        f"{results['decode_step_ms']:.3f} ms); serve() {wall:.1f}s; peak "
+        f"{peak / 2**30:.2f} GiB; {smi}")
+    say(f"[lm] launches: flash {launches['flash']}, decode "
+        f"{launches['decode']}; routes {routes}")
+    entries, rows, repeat_ms = lm_kernel_entries(torch, flash, decode,
+                                                 layers, cfg, launches)
+    flash_ms, decode_ms = entries[0]["ms"], entries[1]["ms"]
+    results.update({
+        "kernels": rows, "gqa_repeat_ms": repeat_ms,
+        "prefill_flash_share": n_layers * flash_ms / 1e3 / t_prefill,
+        "decode_kernel_share": n_layers * decode_ms / results[
+            "decode_step_ms"],
+        "decode_repeat_share": 2 * n_layers * repeat_ms / results[
+            "decode_step_ms"]})
+    say(f"[lm] prefill: {n_layers} flash calls {n_layers * flash_ms:.2f} ms "
+        f"({100 * results['prefill_flash_share']:.1f}% of prefill); decode "
+        f"step {results['decode_step_ms']:.3f} ms: {n_layers} decode "
+        f"kernels {n_layers * decode_ms:.3f} ms "
+        f"({100 * results['decode_kernel_share']:.1f}%), the GQA repeat of "
+        f"K and V {2 * n_layers} x {repeat_ms:.4f} ms "
+        f"({100 * results['decode_repeat_share']:.1f}%)")
+    results["breakdown"] = lm_breakdown(torch, lm, layers, cfg)
+    results["cut"] = lm_kernel_vs_plain(torch, lm, layers, cfg)
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[lm] phase 14 {results['phase_seconds']:.1f}s")
+    return entries, results
+
 # ---------------------------------------------------------------- phase 5
 def phase_shapes(torch, spmm, seen) -> dict:
     """The kernel at every shape phase 4 launched it at, on that launch's
@@ -3362,6 +3807,8 @@ def main() -> int:
     say(f"[time] study {time.perf_counter() - t_start:.1f}s")
     train["lint"] = phase_lint()
     say(f"[time] lint {time.perf_counter() - t_start:.1f}s")
+    lm_entries, train["lm"] = phase_lm(torch, flash, decode, smi)
+    say(f"[time] lm {time.perf_counter() - t_start:.1f}s")
     for run, n in {**train_launches, **mb_launches, **codec_launches,
                    **robust_launches, **trace_launches,
                    **study_launches}.items():
@@ -3398,7 +3845,7 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    kernels += attn_entries
+    kernels += attn_entries + lm_entries
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(

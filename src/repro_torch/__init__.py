@@ -7,7 +7,8 @@ micro-batcher) is kept as NumPy copies of the reference's modules; the
 device layer is PyTorch, and every aggregate runs the hand-written CUDA
 segment-reduce kernel (`kernels/csrc/segment_reduce.cu`) on CUDA tensors.
 
-Entry points: `python -m repro_torch.launch.gnn_serve` (GNN serving) and
+Entry points: `python -m repro_torch.launch.gnn_serve` (GNN serving),
 `python -m repro_torch.launch.gnn_train` (full-batch and mini-batch
-training).
+training) and `python -m repro_torch.launch.serve` (LM serving, the dense
+family: prefill on the flash kernel, decode on the decode kernel).
 """

@@ -1,21 +1,49 @@
-"""Elastic scaling of full-batch training; twin of repro/ckpt/elastic.py.
+"""Elastic scaling utilities; twin of repro/ckpt/elastic.py.
 
-Scaling from k to k' machines re-partitions the graph (the partition is
-preprocessing state, not model state) and rebuilds the device blocks;
-model parameters transfer unchanged because they are partition-
-independent (the tested distributed==single invariant). The reference's
-`reshard_tree` (re-placing an LM's leaves on a new JAX mesh) is not
-ported: the port has no LM training path (ROADMAP).
+LM side: `reshard_tree` re-places every leaf of a tree on a device, the
+restore step of an elastic restart. GNN side: scaling from k to k'
+machines re-partitions the graph (the partition is preprocessing state,
+not model state) and rebuilds the device blocks; model parameters transfer
+unchanged because they are partition-independent (the tested
+distributed==single invariant).
 """
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
+import torch
 
 from repro_torch.core.edge_partition import partition_edges
 from repro_torch.core.graph import Graph
 from repro_torch.gnn.fullbatch import FullBatchTrainer
 from repro_torch.optim import leaves, tree_map
+
+
+def reshard_tree(tree: Any, placements: Any) -> Any:
+    """Place every tensor leaf of `tree` (nested dicts, lists and tuples)
+    on the device named by the matching leaf of `placements` (a
+    `torch.device` or its name), keeping its dtype. The two trees must
+    have the same structure. The reference's twin re-places
+    an LM's leaves on a new JAX mesh after an elastic restart; nothing in
+    the reference calls it, since its launcher (`repro.dist`) is absent
+    from the tree."""
+    if isinstance(tree, dict):
+        if not isinstance(placements, dict) or set(tree) != set(placements):
+            raise ValueError(f"placements do not match the tree's keys "
+                             f"{sorted(tree)}")
+        return {k: reshard_tree(v, placements[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if (not isinstance(placements, (list, tuple))
+                or len(placements) != len(tree)):
+            raise ValueError(f"placements do not match a sequence of "
+                             f"{len(tree)} leaves")
+        return type(tree)(reshard_tree(v, p) for v, p in zip(tree, placements))
+    if not isinstance(tree, torch.Tensor):
+        raise TypeError(f"reshard_tree: a leaf of type {type(tree).__name__}"
+                        "; the leaves are tensors")
+    return tree.to(torch.device(placements))
 
 
 def rescale_fullbatch(

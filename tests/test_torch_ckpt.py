@@ -321,3 +321,28 @@ def _port_leaf(tree, path):
         else:
             node = node[part]
     return node
+
+
+def test_reshard_tree_places_each_leaf():
+    """`elastic.reshard_tree` puts every leaf on the device its placement
+    names, values and dtypes kept; mismatched trees are refused."""
+    from repro_torch.ckpt.elastic import reshard_tree
+
+    tree = {"embed": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3),
+            "blocks": {"wq": torch.ones(2, 2),
+                       "caches": [torch.zeros(3), (torch.ones(1),)]}}
+    placements = {"embed": "cpu", "blocks": {
+        "wq": torch.device("cpu"), "caches": ["cpu", ("cpu",)]}}
+    out = reshard_tree(tree, placements)
+    assert torch.equal(out["embed"], tree["embed"])
+    assert out["embed"].dtype == torch.bfloat16
+    assert torch.equal(out["blocks"]["wq"], torch.ones(2, 2))
+    assert isinstance(out["blocks"]["caches"][1], tuple)
+    assert all(t.device.type == "cpu" for t in (
+        out["embed"], out["blocks"]["wq"], out["blocks"]["caches"][0]))
+    with pytest.raises(ValueError, match="keys"):
+        reshard_tree(tree, {"embed": "cpu"})
+    with pytest.raises(ValueError, match="sequence"):
+        reshard_tree([torch.ones(1)], ["cpu", "cpu"])
+    with pytest.raises(TypeError, match="leaf"):
+        reshard_tree({"n": np.ones(3)}, {"n": "cpu"})

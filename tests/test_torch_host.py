@@ -14,6 +14,7 @@ from repro.core import graph as j_graph  # noqa: E402
 from repro.core import metrics as j_metrics  # noqa: E402
 from repro.core import partition_book as j_book  # noqa: E402
 from repro.core import vertex_partition as j_vp  # noqa: E402
+from repro.data import tokens as j_tokens  # noqa: E402
 from repro.gnn import feature_store as j_fs  # noqa: E402
 from repro.gnn import fullbatch as j_fb  # noqa: E402
 from repro.gnn.models import GNNSpec as JSpec  # noqa: E402
@@ -25,6 +26,7 @@ from repro_torch.core import graph as t_graph  # noqa: E402
 from repro_torch.core import metrics as t_metrics  # noqa: E402
 from repro_torch.core import partition_book as t_book  # noqa: E402
 from repro_torch.core import vertex_partition as t_vp  # noqa: E402
+from repro_torch.data import tokens as t_tokens  # noqa: E402
 from repro_torch.gnn import feature_store as t_fs  # noqa: E402
 from repro_torch.gnn import fullbatch as t_fb  # noqa: E402
 from repro_torch.gnn.models import GNNSpec as TSpec  # noqa: E402
@@ -285,3 +287,20 @@ def test_minibatch_step_identical(model, cached):
     te8 = t_cost.minibatch_step(inputs, remote, edges, owned, TSpec(**kw),
                                 codec="int8", **extra)
     assert_same(je8, te8, model)
+
+
+@pytest.mark.parametrize("seed,vocab,order_states", [
+    (0, 256, 512), (3, 151936, 512), (11, 1000, 64)])
+def test_synthetic_tokens_identical(seed, vocab, order_states):
+    """The LM token corpus: the same transition and emission tables, and
+    batch `step` is the same array for a few (seed, step) pairs."""
+    kw = dict(vocab_size=vocab, seq_len=24, global_batch=3, seed=seed,
+              order_states=order_states)
+    jt, tt = j_tokens.SyntheticTokens(**kw), t_tokens.SyntheticTokens(**kw)
+    assert jt.n_states == tt.n_states
+    assert_same(jt.trans, tt.trans, "trans")
+    assert_same(jt.emit_base, tt.emit_base, "emit_base")
+    for step in (0, 1, 17):
+        jb, tb = jt.batch(step), tt.batch(step)
+        assert set(jb) == set(tb) == {"tokens"}
+        assert_same(jb["tokens"], tb["tokens"], f"batch {step}")
