@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, in order; each one asserts, and nothing is caught, so any failure
-ends the script with a traceback and a non-zero exit:
+Phases, in order; each one asserts, so any failure ends the script with a
+traceback and a non-zero exit (phase 15 gathers its cut checks' failures
+and raises on them all at its end):
 
   1. device  — the card's name and power limit (nvidia-smi) and
                torch.cuda.get_device_name().
@@ -259,19 +260,47 @@ ends the script with a traceback and a non-zero exit:
                check shown to reject a zeroed attention output; and
                prefill-then-decode consistency (tests/test_arch_smoke.py's
                check) on the kernel route.
+ 15. lm families — the VLM, audio, MoE, SSM and hybrid paths at full
+               width through `serve.serve(smoke=False)`, one arch at a
+               time (qwen2-vl-2b, whisper-tiny, deepseek-moe-16b,
+               phi3.5-moe with its depth cut to 4 of 32 layers,
+               mamba2-370m, hymba-1.5b; random weights from seed 0):
+               batch 4, prompt 2048 (whisper's decoder 448 against its
+               1536 frames), 16 tokens, the routes and launch counters set
+               to 0 before and read after: every launch as
+               `family_launches` counts (whisper's
+               encoder and cross-attention in the flash kernel's full
+               mode, its per-step cross-attention on the decode kernel at
+               valid_len 1536), the plain route never. Prints prefill
+               seconds, the decode step's ms, tokens per second, peak
+               memory and the card; a warm decode step run with every
+               synchronising operation an error, then its wall, device
+               busy time, idle share, aten ops and top device ops; each
+               new (kernel, shape) held against its plain version with
+               kernel / plain / SDPA / bound ms. Then at the full widths
+               cut to 2 layers (hymba 5: its 3 global layers and 2
+               windowed; LM_FAMILY_CUT), bf16 and the same weights in
+               fp32: the kernel route twice (bitwise equal) against the
+               plain route, fp32 logits at `_lm_tol`, bf16 by mean error
+               against the plain fp32 run (at most twice the plain bf16
+               run's), each check shown to reject a zeroed attention
+               output (mamba2 has none), and prefill-then-decode for all
+               but the MoE family (exempt in the reference).
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
 made at that shape (phases 7-12 fail if they launched the kernel at a
 shape phase 5 did not time),
-one per (attention kernel, shape, dtype) of phase 6, and one per (kernel,
-shape, dtype) phase 14's full-width run launched, then the card's
-name and power limit, and as the last line
+one per (attention kernel, shape, dtype) of phase 6, one per (kernel,
+shape, dtype) phase 14's full-width run launched, and one per (kernel,
+shape) phase 15's runs launched (`launches_by_run` by arch), then the
+card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
 phase 10's under "robust", phase 11's under "trace", phase 12's under
-"study", phase 13's under "lint", phase 14's under "lm") to
+"study", phase 13's under "lint", phase 14's under "lm", phase 15's
+under "lm_families") to
 chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
@@ -2890,78 +2919,23 @@ def lm_kernel_vs_plain(torch, lm, layers, cfg) -> dict:
 
 def lm_kernel_entries(torch, flash, decode, layers, cfg, launches) -> tuple:
     """The kernels line's entries for the (kernel, shape, dtype) pairs the
-    full-width run launched, each against its plain version on inputs of
-    that shape (K/V drawn with the config's KV heads and repeated), with
-    kernel / plain / SDPA / bound ms; and the decode step's GQA repeat of
-    one layer's cache, timed."""
-    F = torch.nn.functional
-    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    full-width run launched (`lm_shape_entries`), and the decode step's
+    GQA repeat of one layer's cache, timed."""
     b, s, gen = LM_SERVE["batch"], LM_SERVE["prompt_len"], LM_SERVE["gen"]
-    entries, rows = [], []
-    # ---- prefill: every layer's flash call
-    q, k, v = _attn_inputs(torch, (b, h, s, d), (b, h, s, d), torch.bfloat16,
-                           3, kv_heads=kvh)
-    fold = lambda x: x.reshape(b * h, x.shape[2], d)  # noqa: E731
-    qf, kf, vf = fold(q), fold(k), fold(v)
-    out = flash.flash_attention(qf, kf, vf, causal=True)
-    plain = flash.flash_attention_plain(qf, kf, vf, causal=True)
-    err, rel, tol = _hold_attn(torch, "lm prefill", out, plain, "bfloat16", s)
-    del plain
-    ms = _time_ms(torch, lambda: flash.flash_attention(qf, kf, vf,
-                                                       causal=True), 10)
-    plain_ms = _time_ms(torch, lambda: flash.flash_attention_plain(
-        qf, kf, vf, causal=True), 3)
-    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 10)
-    bound_ms, bound_by = _attn_bound("bfloat16", b * h, s, s, d, causal=True)
-    key = (b * h, s, s, d, "bfloat16", True)
-    entries.append(_attn_entry(
-        f"flash_attention[bfloat16,BH={b * h},S={s},D={d},causal]",
-        "flash_attention.cu", "src/repro/kernels/flash_attention.py:32",
-        launches["flash"][key], err, ms, plain_ms, bound_ms, bound_by,
-        library_ms))
-    rows.append(dict(entries[-1], tol=tol, row_rel_err=rel))
-    del q, k, v, qf, kf, vf, out
-    torch.cuda.empty_cache()
-    # ---- decode: every layer's decode call at the last step's cache
-    cache = s + gen
-    valid = cache - 1
-    q, k, v = _attn_inputs(torch, (b, h, d), (b, h, cache, d),
-                           torch.bfloat16, 4, kv_heads=kvh)
-    qf, kf, vf = q.reshape(b * h, d), fold(k), fold(v)
-    valid_t = torch.tensor(valid, dtype=torch.int32, device="cuda")
-    out = decode.decode_attention(qf, kf, vf, valid_t)
-    plain = decode.decode_attention_plain(qf, kf, vf, valid)
-    err, rel, tol = _hold_attn(torch, "lm decode", out, plain, "bfloat16",
-                               valid)
-    ms = _time_ms(torch, lambda: decode.decode_attention(qf, kf, vf,
-                                                         valid_t), 20)
-    plain_ms = _time_ms(torch, lambda: decode.decode_attention_plain(
-        qf, kf, vf, valid_t), 5)
-    q4, ks, vs = q[:, :, None], k[:, :, :valid], v[:, :, :valid]
-    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, ks, vs), 20)
-    bound_ms, bound_by = _attn_bound("bfloat16", b * h, 1, cache, d,
-                                     valid=valid)
-    key = (b * h, cache, d, "bfloat16")
-    entries.append(_attn_entry(
-        f"decode_attention[bfloat16,BH={b * h},S={cache},valid={valid},"
-        f"D={d}]", "decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:26", launches["decode"][key],
-        err, ms, plain_ms, bound_ms, bound_by, library_ms))
-    rows.append(dict(entries[-1], tol=tol, row_rel_err=rel))
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    shapes = {(kernel, key): {"launches_by_run": {LM_ARCH: n}, "b": b,
+                              "h": h, "kvh": kvh, "valid": s + gen - 1}
+              for kernel, table in launches.items()
+              for key, n in table.items()}
+    entries, rows = lm_shape_entries(torch, flash, decode, shapes, "[lm]")
     # the decode route's GQA repeat: one layer's K (or V) cache, [b, kvh,
     # cache, d], copied to [b, h, cache, d] before the kernel reads it
-    small = k[:, ::h // kvh].contiguous()
+    small = torch.randn(b, kvh, s + gen, d, device=LM_DEVICE).to(
+        torch.bfloat16)
     repeat_ms = _time_ms(torch, lambda: layers._repeat_kv(small, h // kvh),
                          20)
-    del q, k, v, qf, kf, vf, out, plain, small, ks, vs, q4
+    del small
     torch.cuda.empty_cache()
-    for e in entries:
-        say(f"[lm] {e['name']}: launches {e['launches']}, err "
-            f"{e['max_abs_err']:.3g}, ms {e['ms']:.4f} plain "
-            f"{e['plain_ms']:.4f} sdpa {e['library_ms']:.4f} bound "
-            f"{e['bound_ms']:.4f} ({e['bound_by']})")
     return entries, rows, repeat_ms
 
 
@@ -3142,7 +3116,9 @@ def phase_lm(torch, flash, decode, smi) -> tuple[list, dict]:
         f"{launches['decode']}; routes {routes}")
     entries, rows, repeat_ms = lm_kernel_entries(torch, flash, decode,
                                                  layers, cfg, launches)
-    flash_ms, decode_ms = entries[0]["ms"], entries[1]["ms"]
+    flash_ms, decode_ms = (next(e["ms"] for e in entries
+                                if e["name"].startswith(kernel))
+                           for kernel in ("flash", "decode"))
     results.update({
         "kernels": rows, "gqa_repeat_ms": repeat_ms,
         "prefill_flash_share": n_layers * flash_ms / 1e3 / t_prefill,
@@ -3162,6 +3138,555 @@ def phase_lm(torch, flash, decode, smi) -> tuple[list, dict]:
     results["phase_seconds"] = time.perf_counter() - t_phase
     say(f"[lm] phase 14 {results['phase_seconds']:.1f}s")
     return entries, results
+
+# --------------------------------------------------------------- phase 15
+# the LM families beyond dense, at full width through
+# `repro_torch.launch.serve.serve` (src/repro/configs/: qwen2_vl_2b,
+# whisper_tiny, deepseek_moe_16b, phi35_moe, mamba2_370m, hymba_15b),
+# random weights from seed 0: batch 4, a 2048-token prompt (whisper's
+# decoder 448, its real context, against its 1536 encoder frames; hymba's
+# equals its window, so prefill takes flash and the decode steps wrap the
+# ring), 16 tokens
+LM_FAMILY_ARCHS = ("qwen2-vl-2b", "whisper-tiny", "deepseek-moe-16b",
+                   "phi3.5-moe-42b-a6.6b", "mamba2-370m", "hymba-1.5b")
+LM_FAMILY_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 16}
+LM_FAMILY_PROMPT = {"whisper-tiny": 448}
+# phi3.5-moe's 4.19e10 parameters are 83.8 GB in bf16, past one 80 GB
+# card: its depth is cut to 4 of 32 layers, its widths kept
+LM_FAMILY_DEPTH = {"phi3.5-moe-42b-a6.6b": 4}
+# kernel route against plain route and prefill-then-decode: the full widths
+# with the depth cut to 2 layers (whisper's encoder too; hymba 5: its 3
+# global layers and 2 windowed), batch 2, 4 teacher-forced decode steps,
+# a 1024-token prompt (whisper 448; hymba 2048, its window, so the decode
+# steps write the ring's wrapped slots)
+LM_FAMILY_CUT = {"num_layers": 2, "batch": 2, "prompt_len": 1024,
+                 "steps": 4}
+LM_FAMILY_CUT_PROMPT = {"whisper-tiny": 448, "hymba-1.5b": 2048}
+LM_FAMILY_CUT_LAYERS = {"hymba-1.5b": 5}
+# at the cut, the fp32 kernel route's mean logit error against the plain
+# fp32 route at most this share of N, the mean error bf16 rounding alone
+# gives the same model (plain bf16 against plain fp32): the reference's
+# init puts attention near an argmax (fan_in = L), so a near-tie can flip
+# a token in either fp32 route, and the logits are not held elementwise
+LM_FAMILY_F32_SHARE = 0.25
+# an attention call's mean error against its float64 truth may pass twice
+# the plain route's by this share of the truth's mean magnitude (fp32 128
+# ulps, bf16 one ulp at 1)
+LM_FAMILY_CALL_FLOOR = {"float32": 2 ** -16, "bfloat16": 2 ** -8}
+
+
+def family_launches(cfg, b: int, s: int, steps: int, max_len: int):
+    """The flash and decode launches, by the kernels' keys, of a prefill of
+    `s` tokens (plus the VLM's 8 patches) and `steps` decode steps into
+    caches of `max_len` slots, at bf16: a causal flash call per decoder
+    layer; whisper's encoder layers and cross-attention in full mode; a
+    decode call per layer and step (a windowed layer's against its
+    window's ring), whisper's cross-attention against its frames."""
+    flash, decode = {}, {}
+
+    def add(table, key, n):
+        if n:
+            table[key] = table.get(key, 0) + n
+
+    if not cfg.num_heads:
+        return flash, decode
+    bh, d, dt = b * cfg.num_heads, cfg.resolved_head_dim, "bfloat16"
+    if cfg.dtype != "bfloat16":
+        dt = "float32"
+    sq = s + (min(cfg.num_patches, 8) if cfg.family == "vlm" else 0)
+    add(flash, (bh, sq, sq, d, dt, True), cfg.num_layers)
+    windowed = cfg.num_layers if cfg.sliding_window else 0
+    if cfg.hybrid:
+        windowed = cfg.num_layers - cfg.num_global_layers
+    if cfg.sliding_window:
+        add(decode, (bh, min(cfg.sliding_window, max_len), d, dt),
+            windowed * steps)
+    add(decode, (bh, max_len, d, dt), (cfg.num_layers - windowed) * steps)
+    if cfg.encoder_decoder:
+        se = cfg.encoder_seq
+        add(flash, (bh, se, se, d, dt, False), cfg.encoder_layers)
+        add(flash, (bh, sq, se, d, dt, False), cfg.num_layers)
+        add(decode, (bh, se, d, dt), cfg.num_layers * steps)
+    return flash, decode
+
+
+@contextlib.contextmanager
+def _depth_cut(lm_serve, arch: str, n_layers):
+    """`serve` loads `arch` with its depth cut to `n_layers` (None: as
+    published), its widths kept."""
+    orig = lm_serve.get_config
+    if n_layers:
+        lm_serve.get_config = lambda a: dataclasses.replace(
+            orig(a), num_layers=n_layers) if a == arch else orig(a)
+    try:
+        yield
+    finally:
+        lm_serve.get_config = orig
+
+
+def _mean_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().mean())
+
+
+def family_step(torch, lm, lm_serve, cfg, b, s, gen) -> dict:
+    """A warm decode step of the full-width serve, on weights and prompts
+    made as `serve` makes them: run once with every synchronising
+    operation an error (`_no_sync`), then its wall (the median of
+    LM_STEPS_TIMED, host clock ending in a synchronise), device
+    busy time (torch.profiler), idle share, aten ops and top device ops."""
+    from repro_torch.analysis.dispatch import record as record_ops
+
+    params = lm.init_params(
+        cfg, torch.Generator(device=LM_DEVICE).manual_seed(0), LM_DEVICE)
+    batch, sq = lm_serve.serve_inputs(cfg, np.random.default_rng(0), b, s,
+                                      LM_DEVICE)
+    logits, caches = lm.prefill(cfg, params, batch, max_len=s + gen)
+    tokens = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    idx = torch.full((), sq, dtype=torch.int32, device=LM_DEVICE)
+    vlm = cfg.family == "vlm"
+    step = lambda: lm.decode_step(  # noqa: E731
+        cfg, params, tokens, caches, idx,
+        pos3=idx.reshape(1, 1, 1).expand(3, b, 1) if vlm else None)
+    step()
+    torch.cuda.synchronize()
+    with _no_sync(torch):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(LM_STEPS_TIMED):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall_ms = float(np.median(times)) * 1e3
+    busy_ms, top = _device_busy(torch, step)
+    n_ops = sum(not op.name.startswith("kernel:") for op in record_ops(step))
+    del params, caches, logits, batch
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "aten_ops": n_ops,
+            "top": top}
+
+
+def family_serve(torch, flash, decode, layers, lm, lm_serve, arch,
+                 smi) -> tuple[dict, dict]:
+    """One arch through `serve.serve(smoke=False)` with the routes and the
+    launch counters set to 0 before and read after: the launches asserted
+    (`family_launches`; no plain route), the tokens
+    checked, and the warm decode step (`family_step`). Returns (results,
+    the launches by kernel key)."""
+    from repro_torch.configs.base import get_config
+
+    b, gen = LM_FAMILY_SERVE["batch"], LM_FAMILY_SERVE["gen"]
+    s = LM_FAMILY_PROMPT.get(arch, LM_FAMILY_SERVE["prompt_len"])
+    cfg = get_config(arch)
+    if arch in LM_FAMILY_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=LM_FAMILY_DEPTH[arch])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash.LAUNCHES.clear()
+    decode.LAUNCHES.clear()
+    layers.ROUTES.clear()
+    with _depth_cut(lm_serve, arch, LM_FAMILY_DEPTH.get(arch)):
+        t0 = time.perf_counter()
+        seqs, t_prefill, t_decode = lm_serve.serve(
+            arch, smoke=False, device=LM_DEVICE, batch=b, prompt_len=s,
+            gen=gen)
+        wall = time.perf_counter() - t0
+    launches = {"flash": dict(flash.LAUNCHES),
+                "decode": dict(decode.LAUNCHES)}
+    routes = dict(layers.ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    want_flash, want_decode = family_launches(cfg, b, s, gen - 1, s + gen)
+    assert launches == {"flash": want_flash, "decode": want_decode}, (
+        arch, launches, want_flash, want_decode)
+    n_flash, n_decode = sum(want_flash.values()), sum(want_decode.values())
+    want_routes = {k: n for k, n in (("flash", n_flash),
+                                     ("decode", n_decode)) if n}
+    assert routes == want_routes, f"{arch}: routes {routes}, plain taken?"
+    seqs = seqs.cpu()
+    assert seqs.shape == (b, gen), seqs.shape
+    assert int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size
+    res = {"arch": arch, "params": cfg.param_count(),
+           "num_layers": cfg.num_layers, "batch": b, "prompt_len": s,
+           "gen": gen, "prefill_s": t_prefill, "decode_s": t_decode,
+           "decode_step_ms": t_decode / (gen - 1) * 1e3,
+           "decode_ms_per_token_per_seq": t_decode / (gen - 1) / b * 1e3,
+           "decode_tokens_per_s": b * (gen - 1) / t_decode,
+           "prefill_tokens_per_s": b * s / t_prefill,
+           "serve_wall_s": wall, "peak_bytes": peak,
+           "launches": {k: {str(kk): n for kk, n in v.items()}
+                        for k, v in launches.items()},
+           "routes": routes, "sample": seqs[0, :16].tolist(), "card": smi}
+    say(f"[lm families] {arch} ({cfg.param_count():,} parameters, "
+        f"{cfg.num_layers} layers, bf16): batch {b}, prompt {s}, {gen} "
+        f"tokens; prefill {t_prefill:.4f}s "
+        f"({res['prefill_tokens_per_s']:.0f} tokens/s), decode step "
+        f"{res['decode_step_ms']:.3f} ms ({res['decode_tokens_per_s']:.1f}"
+        f" tokens/s); serve() {wall:.1f}s; peak {peak / 2**30:.2f} GiB; "
+        f"routes {routes}; {smi}")
+    res["step"] = family_step(torch, lm, lm_serve, cfg, b, s, gen)
+    st = res["step"]
+    say(f"[lm families] {arch} warm decode step (no sync): wall "
+        f"{st['wall_ms']:.3f} ms, device busy {st['busy_ms']:.3f} ms, idle "
+        f"share {st['idle_share']:.3f}, {st['aten_ops']} aten ops; top "
+        "device ops (ms): "
+        + "; ".join(f"{n} {ms:.3f}" for n, ms in st["top"]))
+    return res, launches
+
+
+def lm_shape_entries(torch, flash, decode, shapes, tag) -> tuple:
+    """The kernels line's entries for every (kernel, shape) an LM serve
+    launched, each against its plain version on inputs of that shape (K/V
+    drawn with the arch's KV heads and repeated), two launches bitwise
+    equal, with kernel / plain / SDPA / bound ms. `shapes`: {(kernel,
+    key): {"launches_by_run": {arch: n}, "b", "h", "kvh", "valid" (the
+    decode calls' last valid_len)}}. Returns (entries, rows)."""
+    F = torch.nn.functional
+    entries, rows = [], []
+    for (kernel, key), info in sorted(shapes.items(), key=str):
+        b, h, kvh = info["b"], info["h"], info["kvh"]
+        launches = sum(info["launches_by_run"].values())
+        if kernel == "flash":
+            bh, sq, skv, d, dtype, causal = key
+            q, k, v = _attn_inputs(torch, (b, h, sq, d), (b, h, skv, d),
+                                   torch.bfloat16, sq + skv, kv_heads=kvh)
+            fold = lambda x: x.reshape(bh, x.shape[2], d)  # noqa: E731
+            qf, kf, vf = fold(q), fold(k), fold(v)
+            out = flash.flash_attention(qf, kf, vf, causal=causal)
+            assert torch.equal(out, flash.flash_attention(
+                qf, kf, vf, causal=causal)), f"flash {key}: repeat differs"
+            plain = flash.flash_attention_plain(qf, kf, vf, causal=causal)
+            err, rel, tol = _hold_attn(torch, f"{tag} flash {key}", out,
+                                       plain, dtype, skv)
+            ms = _time_ms(torch, lambda: flash.flash_attention(
+                qf, kf, vf, causal=causal), 10)
+            plain_ms = _time_ms(torch, lambda: flash.flash_attention_plain(
+                qf, kf, vf, causal=causal), 3)
+            library_ms = _time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), 10)
+            bound_ms, bound_by = _attn_bound(dtype, bh, sq, skv, d,
+                                             causal=causal)
+            # a square causal shape keeps the name earlier runs gave it
+            span = (f"S={sq}" if causal and sq == skv
+                    else f"Sq={sq},Skv={skv}")
+            name = (f"flash_attention[{dtype},BH={bh},{span},D={d},"
+                    f"{'causal' if causal else 'full'}]")
+            entry = _attn_entry(name, "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:32",
+                                launches, err, ms, plain_ms, bound_ms,
+                                bound_by, library_ms)
+            del q, k, v, qf, kf, vf, out, plain
+        else:
+            bh, s, d, dtype = key
+            valid = info["valid"]
+            q, k, v = _attn_inputs(torch, (b, h, d), (b, h, s, d),
+                                   torch.bfloat16, s + d, kv_heads=kvh)
+            qf, kf, vf = q.reshape(bh, d), k.reshape(bh, s, d), \
+                v.reshape(bh, s, d)
+            valid_t = torch.tensor(valid, dtype=torch.int32, device="cuda")
+            out = decode.decode_attention(qf, kf, vf, valid_t)
+            assert torch.equal(out, decode.decode_attention(
+                qf, kf, vf, valid_t)), f"decode {key}: repeat differs"
+            plain = decode.decode_attention_plain(qf, kf, vf, valid)
+            err, rel, tol = _hold_attn(torch, f"{tag} decode {key}", out,
+                                       plain, dtype, valid)
+            ms = _time_ms(torch, lambda: decode.decode_attention(
+                qf, kf, vf, valid_t), 20)
+            plain_ms = _time_ms(torch, lambda: decode.decode_attention_plain(
+                qf, kf, vf, valid_t), 5)
+            q4, ks, vs = q[:, :, None], k[:, :, :valid], v[:, :, :valid]
+            library_ms = _time_ms(
+                torch, lambda: F.scaled_dot_product_attention(q4, ks, vs), 20)
+            bound_ms, bound_by = _attn_bound(dtype, bh, 1, s, d, valid=valid)
+            name = (f"decode_attention[{dtype},BH={bh},S={s},valid={valid},"
+                    f"D={d}]")
+            entry = _attn_entry(name, "decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:26",
+                                launches, err, ms, plain_ms, bound_ms,
+                                bound_by, library_ms)
+            del q, k, v, qf, kf, vf, out, plain, q4, ks, vs
+        entry["launches_by_run"] = dict(info["launches_by_run"])
+        entries.append(entry)
+        rows.append(dict(entry, tol=tol, row_rel_err=rel))
+        say(f"{tag} {name}: launches {entry['launches_by_run']}, "
+            f"err {err:.3g}, ms {ms:.4f} plain {plain_ms:.4f} sdpa "
+            f"{library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+        torch.cuda.empty_cache()
+    return entries, rows
+
+
+def _to_dtype(torch, tree, dtype):
+    """A parameter tree with its bf16 leaves cast to `dtype` (the fp32
+    leaves, norms and the router, stay as they are)."""
+    if isinstance(tree, dict):
+        return {k: _to_dtype(torch, v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.dtype == torch.bfloat16 else tree
+
+
+def family_cut_run(torch, lm, cfg, params, batch, s, steps, use_pallas):
+    """Prefill over `s` prompt tokens of `batch` (serve_inputs' batch over
+    s + steps tokens, the VLM's patch prefix and M-RoPE positions
+    included), then `steps` teacher-forced decode steps: the logits
+    stacked [steps + 1, B, V]."""
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    prefix = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    prompt = dict(batch, tokens=tokens[:, :s])
+    if "pos3" in batch:
+        prompt["pos3"] = batch["pos3"][..., :prefix + s]
+    with torch.inference_mode():
+        logits, caches = lm.prefill(cfg, params, prompt,
+                                    max_len=prefix + s + steps,
+                                    use_pallas=use_pallas)
+        outs = [logits]
+        for t in range(steps):
+            idx = prefix + s + t
+            pos3 = (torch.full((3, b, 1), idx, dtype=torch.int32,
+                               device=tokens.device)
+                    if "pos3" in batch else None)
+            logits, caches = lm.decode_step(
+                cfg, params, tokens[:, s + t:s + t + 1], caches, idx,
+                pos3=pos3, use_pallas=use_pallas)
+            outs.append(logits)
+    return torch.stack(outs)
+
+
+@contextlib.contextmanager
+def _checked_attention(torch, layers, calls):
+    """Every `layers.attention` call returns its route's output as before,
+    and is also computed on the plain route at its dtype and, as the
+    truth, on the plain route in float64 from the same inputs; each call's
+    route, shapes and mean errors against the truth go to `calls`. The
+    routes of the extra calls are taken out of `layers.ROUTES` again."""
+    orig = layers.attention
+
+    def checked(q, k, v, **kw):
+        before = dict(layers.ROUTES)
+        out = orig(q, k, v, **kw)
+        route = next(r for r, n in layers.ROUTES.items()
+                     if n != before.get(r, 0))
+        plain_kw = dict(kw, use_pallas=False)
+        plain = orig(q, k, v, **plain_kw)
+        truth = orig(q.double(), k.double(), v.double(), **plain_kw)
+        layers.ROUTES["plain"] -= 2
+        if not layers.ROUTES["plain"]:
+            del layers.ROUTES["plain"]
+        calls.append({
+            "route": route, "q": tuple(q.shape), "kv": tuple(k.shape),
+            "causal": kw.get("causal", True),
+            "err": float((out.double() - truth).abs().mean()),
+            "plain_err": float((plain.double() - truth).abs().mean()),
+            "scale": float(truth.abs().mean())})
+        return out
+
+    layers.attention = checked
+    try:
+        yield
+    finally:
+        layers.attention = orig
+
+
+def _hold_calls(dtype, calls, what, fails) -> dict:
+    """Every checked attention call (`_checked_attention`): its mean error
+    against the float64 truth at most twice the plain route's, plus
+    LM_FAMILY_CALL_FLOOR of the truth's mean magnitude; the rule shown to
+    reject a zeroed output (mean error = the truth's mean magnitude) at
+    every call. Returns the worst ratio of error to bound by route."""
+    worst = {}
+    for c in calls:
+        bound = (2 * c["plain_err"]
+                 + LM_FAMILY_CALL_FLOOR[dtype] * c["scale"])
+        if not c["err"] <= bound:
+            fails.append(f"{what} {dtype} attention call {c['route']} q "
+                         f"{c['q']} kv {c['kv']}: mean err {c['err']:.3g} >"
+                         f" {bound:.3g}")
+        if not c["scale"] > bound:
+            fails.append(f"{what} {dtype} attention call {c['route']}: a "
+                         "zeroed output passes")
+        worst[c["route"]] = max(worst.get(c["route"], 0.0), c["err"] / bound)
+    return worst
+
+
+def family_cut(torch, lm, lm_serve, layers, arch, fails) -> dict:
+    """At the full widths cut to LM_FAMILY_CUT depth, bf16 and the same
+    weights cast to fp32, `family_cut_run` on the kernel route three
+    times (bitwise equal; the first with the routes counted as
+    `family_launches` counts, the third with every attention call checked
+    against a float64 plain evaluation of its own inputs,
+    `_checked_attention` / `_hold_calls`), on the plain route and with
+    every attention output zeroed. The logits, by mean error over the
+    steps (the reference's init puts attention near an argmax, so a token
+    can flip on a near-tie in either route; N = the plain bf16 run's mean
+    error against the plain fp32 run, bf16's own rounding of the model):
+    bf16 kernel against plain fp32 at most 2 N + 2^-8; fp32 kernel
+    against plain fp32 at most LM_FAMILY_F32_SHARE x N, shown to reject
+    the zeroed run (bf16: reported). Prefill-then-decode on the kernel
+    route (the MoE family exempt, as in the reference): decoding token s
+    after a prefill of s against a prefill of s + 1, by mean error, fp32
+    at most LM_FAMILY_F32_SHARE x N, bf16 at most 2 N + 2^-8. A failed
+    check goes to `fails`."""
+    from repro_torch.configs.base import get_config
+
+    b, steps = LM_FAMILY_CUT["batch"], LM_FAMILY_CUT["steps"]
+    s = LM_FAMILY_CUT_PROMPT.get(arch, LM_FAMILY_CUT["prompt_len"])
+    n = LM_FAMILY_CUT_LAYERS.get(arch, LM_FAMILY_CUT["num_layers"])
+    cfg = dataclasses.replace(get_config(arch), num_layers=n)
+    if cfg.encoder_decoder:
+        cfg = dataclasses.replace(cfg, encoder_layers=n)
+    batch, total = lm_serve.serve_inputs(cfg, np.random.default_rng(1), b,
+                                         s + steps, LM_DEVICE)
+    prefix = total - s - steps
+    p16 = lm.init_params(
+        cfg, torch.Generator(device=LM_DEVICE).manual_seed(1), LM_DEVICE)
+    attn = bool(cfg.num_heads)
+    runs, calls = {}, {}
+    out = {"num_layers": n, "prompt_len": s}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = p16 if dtype == "bfloat16" else _to_dtype(
+            torch, p16, torch.float32)
+        bt = batch if dtype == "bfloat16" else {
+            k: (v.float() if v.dtype == torch.bfloat16 else v)
+            for k, v in batch.items()}
+        run = lambda use_pallas: family_cut_run(  # noqa: E731
+            torch, lm, c, params, bt, s, steps, use_pallas)
+        layers.ROUTES.clear()
+        runs[dtype, "kernel"] = run(None)
+        routes = dict(layers.ROUTES)
+        flash_n, decode_n = family_launches(c, b, s, steps,
+                                            prefix + s + steps)
+        want = {k: v for k, v in (("flash", sum(flash_n.values())),
+                                  ("decode", sum(decode_n.values()))) if v}
+        if routes != want:
+            fails.append(f"{arch} {dtype} cut routes {routes} != {want}")
+        if not torch.equal(runs[dtype, "kernel"], run(None)):
+            fails.append(f"{arch} {dtype}: kernel runs differ")
+        calls[dtype] = []
+        with _checked_attention(torch, layers, calls[dtype]):
+            checked = run(None)
+        if not torch.equal(runs[dtype, "kernel"], checked):
+            fails.append(f"{arch} {dtype}: the checked kernel run differs")
+        if len(calls[dtype]) != sum(want.values()):
+            fails.append(f"{arch} {dtype}: {len(calls[dtype])} attention "
+                         f"calls checked, {sum(want.values())} made")
+        out[f"calls_{dtype}"] = _hold_calls(dtype, calls[dtype], arch, fails)
+        runs[dtype, "plain"] = run(False)
+        with _zeroed_attention(layers):
+            runs[dtype, "zeroed"] = run(None)
+        # prefill-then-decode on the kernel route (MoE exempt)
+        if cfg.family != "moe":
+            one = dict(bt, tokens=bt["tokens"][:, :s + 1])
+            if "pos3" in bt:
+                one["pos3"] = bt["pos3"][..., :prefix + s + 1]
+            runs[dtype, "decoded"] = family_cut_run(
+                torch, lm, c, params, one, s, 1, None)[1]
+            with torch.inference_mode():
+                runs[dtype, "full"], _ = lm.prefill(
+                    c, params, one, max_len=prefix + s + 8)
+        del params, checked
+        torch.cuda.empty_cache()
+    truth = runs["float32", "plain"]
+    noise = _mean_err(runs["bfloat16", "plain"], truth)
+    bounds = {"bfloat16": 2 * noise + 2 ** -8,
+              "float32": LM_FAMILY_F32_SHARE * noise}
+    out.update(bf16_noise=noise, logit_max=float(truth.abs().max()))
+    for dtype, bound in bounds.items():
+        err = _mean_err(runs[dtype, "kernel"], truth)
+        zero = _mean_err(runs[dtype, "zeroed"], truth)
+        out[f"{dtype}_mean_err"], out[f"{dtype}_zeroed_mean_err"] = err, zero
+        out[f"{dtype}_max_abs_err"] = _max_abs_err(
+            torch, runs[dtype, "kernel"], runs[dtype, "plain"])
+        out[f"{dtype}_bound"] = bound
+        if not err <= bound:
+            fails.append(f"{arch} {dtype} kernel route: mean err {err:.4g} "
+                         f"> {bound:.4g}")
+        out[f"{dtype}_zeroed_rejected"] = zero > bound
+        if attn and dtype == "float32" and not zero > bound:
+            fails.append(f"{arch} fp32: a zeroed attention output passes")
+        if not attn and not torch.equal(runs[dtype, "kernel"],
+                                        runs[dtype, "plain"]):
+            fails.append(f"{arch} {dtype}: no attention, yet the routes "
+                         "differ")
+        if cfg.family != "moe":
+            dec, full = runs[dtype, "decoded"], runs[dtype, "full"]
+            cons = _mean_err(dec, full)
+            out[f"{dtype}_consistency_mean_err"] = cons
+            out[f"{dtype}_consistency_max_abs_err"] = _max_abs_err(
+                torch, dec, full)
+            if not cons <= bound:
+                fails.append(f"{arch} {dtype} prefill-then-decode: mean err "
+                             f"{cons:.4g} > {bound:.4g}")
+    say(f"[lm families] {arch} kernel vs plain ({n} layers, batch {b}, "
+        f"prompt {s}, {steps} decode steps; largest |logit| "
+        f"{out['logit_max']:.3g}, bf16 noise N {noise:.4g}): "
+        + "; ".join(
+            f"{dt} mean err {out[f'{dt}_mean_err']:.4g} (bound "
+            f"{out[f'{dt}_bound']:.4g}, max |kernel - plain| "
+            f"{out[f'{dt}_max_abs_err']:.3g}), zeroed "
+            f"{out[f'{dt}_zeroed_mean_err']:.3g} "
+            f"{'rejected' if out[f'{dt}_zeroed_rejected'] else 'passes'}"
+            + (f", prefill-then-decode mean "
+               f"{out[f'{dt}_consistency_mean_err']:.3g} max "
+               f"{out[f'{dt}_consistency_max_abs_err']:.3g}"
+               if cfg.family != "moe" else "")
+            for dt in ("float32", "bfloat16"))
+        + ("; attention calls (worst error / bound by route) "
+           + ", ".join(f"{dt} {len(calls[dt])} {out[f'calls_{dt}']}"
+                       for dt in ("float32", "bfloat16"))
+           if attn else "; no attention"))
+    del runs, p16, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_families(torch, flash, decode, smi) -> tuple[list, dict]:
+    """Phase 15: the VLM, audio, MoE, SSM and hybrid families at full
+    width through `serve`, their launches and routes, their new kernel
+    shapes against the plain versions, kernel route == plain route and
+    prefill-then-decode at the cut. Returns (the kernels line's entries,
+    results)."""
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers, lm
+
+    t_phase = time.perf_counter()
+    results, shapes, fails = {}, {}, []
+    for arch in LM_FAMILY_ARCHS:
+        res, launches = family_serve(torch, flash, decode, layers, lm,
+                                     lm_serve, arch, smi)
+        results[arch] = res
+        cfg = get_config(arch)
+        b, gen = res["batch"], res["gen"]
+        sq = res["prompt_len"] + (min(cfg.num_patches, 8)
+                                  if cfg.family == "vlm" else 0)
+        for kernel, table in launches.items():
+            for key, n in table.items():
+                info = shapes.setdefault((kernel, key), {
+                    "launches_by_run": {}, "b": b, "h": cfg.num_heads,
+                    "kvh": cfg.num_kv_heads})
+                info["launches_by_run"][arch] = n
+                if kernel == "decode":
+                    # the last decode step's valid slots (whisper's cross
+                    # attention: every frame)
+                    cache = key[1]
+                    info["valid"] = (cache if cache == cfg.encoder_seq
+                                     and cfg.encoder_decoder
+                                     else min(sq + gen - 1, cache))
+    t_serve = time.perf_counter() - t_phase
+    entries, rows = lm_shape_entries(torch, flash, decode, shapes,
+                                     "[lm families]")
+    results["kernels"] = rows
+    results["cut"] = {arch: family_cut(torch, lm, lm_serve, layers, arch,
+                                       fails)
+                      for arch in LM_FAMILY_ARCHS}
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[lm families] phase 15 {results['phase_seconds']:.1f}s (serving "
+        f"{t_serve:.1f}s)")
+    assert not fails, "phase 15: " + "; ".join(fails)
+    return entries, results
+
 
 # ---------------------------------------------------------------- phase 5
 def phase_shapes(torch, spmm, seen) -> dict:
@@ -3809,6 +4334,9 @@ def main() -> int:
     say(f"[time] lint {time.perf_counter() - t_start:.1f}s")
     lm_entries, train["lm"] = phase_lm(torch, flash, decode, smi)
     say(f"[time] lm {time.perf_counter() - t_start:.1f}s")
+    family_entries, train["lm_families"] = phase_lm_families(
+        torch, flash, decode, smi)
+    say(f"[time] lm families {time.perf_counter() - t_start:.1f}s")
     for run, n in {**train_launches, **mb_launches, **codec_launches,
                    **robust_launches, **trace_launches,
                    **study_launches}.items():
@@ -3845,7 +4373,7 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    kernels += attn_entries + lm_entries
+    kernels += attn_entries + lm_entries + family_entries
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(

@@ -1,8 +1,9 @@
 """LM serving: batched prefill + greedy decode with a KV cache; twin of
-repro/launch/serve.py, for the dense family.
+repro/launch/serve.py, for all ten architectures.
 
 On the card every prefill layer's attention launches the flash kernel and
-every decode layer's the decode kernel (models/layers.py routes them).
+every decode layer's the decode kernel (models/layers.py routes them;
+mamba2 has no attention).
 Runs on the card unless `--device cpu` is given; with `--device cuda` and
 no GPU visible it raises.
 
@@ -30,6 +31,37 @@ def _now(device: torch.device) -> float:
     return time.perf_counter()
 
 
+def _bf16(a: np.ndarray, device) -> torch.Tensor:
+    """A float64 NumPy array rounded to bfloat16 on the host (as the
+    reference's `jnp.asarray(a, jnp.bfloat16)` rounds it), then placed on
+    `device`."""
+    return torch.from_numpy(a).to(torch.bfloat16).to(device)
+
+
+def serve_inputs(cfg, rng: np.random.Generator, batch: int, prompt_len: int,
+                 device) -> tuple[dict, int]:
+    """The prompt batch, drawn from `rng` in the reference's order: the
+    tokens, then whisper's frame embeddings, then the VLM's
+    min(num_patches, 8) patch embeddings, with the M-RoPE positions over
+    patches and tokens. Returns (batch, the prompt's length with the patch
+    prefix)."""
+    batch_in = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+        dtype=torch.int32, device=device)}
+    if cfg.encoder_decoder:
+        batch_in["frames"] = _bf16(
+            rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)), device)
+    if cfg.family == "vlm":
+        p = min(cfg.num_patches, 8)
+        batch_in["patch_embeds"] = _bf16(
+            rng.normal(size=(batch, p, cfg.d_model)), device)
+        prompt_len = p + prompt_len
+        batch_in["pos3"] = torch.arange(
+            prompt_len, dtype=torch.int32, device=device)[None, None].expand(
+                3, batch, prompt_len)
+    return batch_in, prompt_len
+
+
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 64, gen: int = 32, seed: int = 0,
           device="cuda"):
@@ -39,7 +71,9 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     on `device` seeded with `seed`, the prompts from NumPy's. The prefill
     seconds include building the kernels in a fresh process, as the
     reference's include its jit compile; the decode loop never reads a
-    device value back to the host."""
+    device value back to the host. As the reference does, the caches hold
+    `prompt_len + gen` slots, the VLM's patch prefix not counted: its last
+    decode steps write the clamped last slot."""
     if isinstance(device, str):
         device = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
@@ -49,9 +83,8 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
             cfg, torch.Generator(device=device).manual_seed(seed), device)
         rng = np.random.default_rng(seed)
         max_len = prompt_len + gen
-        batch_in = {"tokens": torch.as_tensor(
-            rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
-            dtype=torch.int32, device=device)}
+        batch_in, prompt_len = serve_inputs(cfg, rng, batch, prompt_len,
+                                            device)
 
         t0 = _now(device)
         logits, caches = lm.prefill(cfg, params, batch_in, max_len=max_len)
@@ -62,7 +95,10 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
         idx = torch.full((), prompt_len, dtype=torch.int32, device=device)
         t0 = _now(device)
         for _ in range(gen - 1):
-            logits, caches = lm.decode_step(cfg, params, tokens, caches, idx)
+            pos3 = (idx.reshape(1, 1, 1).expand(3, batch, 1)
+                    if cfg.family == "vlm" else None)
+            logits, caches = lm.decode_step(cfg, params, tokens, caches, idx,
+                                            pos3=pos3)
             tokens = torch.argmax(logits, -1)[:, None].to(torch.int32)
             out_tokens.append(tokens)
             idx = idx + 1

@@ -1,3 +1,3 @@
-"""The LM side: config-driven transformer blocks (`layers`) and their
-assembly into init / prefill / decode / loss (`lm`). Only the dense family
-is ported so far (ROADMAP.md, queue 1, item 6)."""
+"""The LM side: config-driven transformer and SSM blocks (`layers`) and
+their assembly into init / prefill / decode / loss (`lm`), for all ten
+architectures."""

@@ -1,23 +1,27 @@
-"""Transformer building blocks of the dense family, in PyTorch; twin of
-repro/models/layers.py.
-
-Ported: the norms, RoPE, grouped-query attention and the two MLPs.
-`apply_mrope`, `moe_ffn`, `ssd_chunked`, `ssd_decode_step` and
-`causal_conv1d` come with their families' slices (ROADMAP.md, queue 1,
-item 6).
+"""Transformer and SSM building blocks, in PyTorch; twin of
+repro/models/layers.py: the norms, RoPE and M-RoPE, grouped-query
+attention, the two MLPs, the capacity-bucketed top-k MoE, and Mamba2's
+chunked SSD scan, its one-token step and its causal depthwise conv.
 
 `attention` keeps the reference's contract and routes each call by
 `attention_route`, a pure function of the call's shapes and options:
 
   flash   the hand-written flash kernel (kernels/ops.flash_attention), for
           a causal square call from position 0 with no cache mask
-          (prefill);
+          (prefill), or a full (non-causal) call of more than one query
+          row with no mask and no window (whisper's encoder and its
+          prefill cross-attention);
   decode  the hand-written decode kernel (kernels/ops.decode_attention),
           for one query row against a cache masked at `kv_valid_len`
-          (a decode step);
+          (a decode step), or unmasked (whisper's cross-attention at a
+          decode step: valid_len is the whole cache);
   plain   the reference's own math in PyTorch: every CPU call, and the
           calls outside the kernels' contract on the card (a head dim the
           kernels do not take, a windowed prompt longer than its window).
+
+The MoE's expert products and the SSD chunk products are plain products
+in the reference too (no Pallas kernel reaches them); here they stay
+`torch.matmul` / `torch.einsum`.
 
 `ROUTES` counts the calls per route, as the kernels' `LAUNCHES` count
 their launches.
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import functools
 from collections import Counter
+from typing import Optional
 
 import numpy as np
 import torch
@@ -102,6 +107,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def _mrope_sections_on(sections: tuple, device: torch.device) -> torch.Tensor:
+    """Which position stream drives each frequency slot (the reference's
+    `np.repeat(arange, sections)`), as int64 on `device`, made there once."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(
+            np.repeat(np.arange(len(sections)), sections), device=device)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the D/2 frequency slots are split into
+    temporal/height/width sections, each rotated by its own position
+    stream. x [B, H, S, D]; pos3 [3, B, S]; sum(sections) == D // 2."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    freqs = _rope_freqs_on(d, float(theta), x.device)    # [half]
+    sec_id = _mrope_sections_on(tuple(sections), x.device)  # [half]
+    pos = pos3.index_select(0, sec_id).movedim(0, -1)    # [B, S, half]
+    angles = pos.float() * freqs
+    cos = torch.cos(angles)[:, None].to(x.dtype)         # [B, 1, S, half]
+    sin = torch.sin(angles)[:, None].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -138,14 +169,18 @@ def attention_route(
     "flash", "decode" or "plain".
 
     Both kernels fix the scale at 1/sqrt(D), take D in HEAD_DIMS and
-    float32 / bfloat16. Beyond that, flash needs a causal call with
-    Sq == Skv, no `kv_valid_len`, `q_offset` 0 and either no window or
-    Sq <= window (then q_idx - k_idx < window holds for every unmasked
-    pair, and the window is a no-op); decode needs Sq == 1, a non-causal
-    call with `kv_valid_len` and no window. `use_pallas`: None takes the
-    kernel that fits on a CUDA device and the plain math elsewhere; False
-    the plain math; True the kernel, raising ValueError on a CPU device or
-    a call outside both kernels' contract."""
+    float32 / bfloat16. Beyond that, flash takes
+      - a causal call with Sq == Skv, no `kv_valid_len`, `q_offset` 0 and
+        either no window or Sq <= window (then q_idx - k_idx < window
+        holds for every unmasked pair, and the window is a no-op);
+      - a full (non-causal) call with Sq > 1, no `kv_valid_len` and no
+        window, at any Sq and Skv (the kernel's last tiles may be
+        ragged);
+    and decode takes Sq == 1 in a non-causal call with no window, masked
+    at `kv_valid_len` or, without it, over all Skv slots. `use_pallas`:
+    None takes the kernel that fits on a CUDA device and the plain math
+    elsewhere; False the plain math; True the kernel, raising ValueError
+    on a CPU device or a call outside both kernels' contract."""
     _, _, sq, d = q_shape
     skv = kv_shape[2]
     fits = (d in HEAD_DIMS and softmax_scale is None
@@ -154,8 +189,10 @@ def attention_route(
     if (fits and kv_valid_len is None and causal and sq == skv
             and _is_zero(q_offset) and (not window or sq <= window)):
         kernel = "flash"
-    elif (fits and sq == 1 and not causal and kv_valid_len is not None
-          and not window):
+    elif (fits and kv_valid_len is None and not causal and not window
+          and sq > 1):
+        kernel = "flash"
+    elif fits and sq == 1 and not causal and not window:
         kernel = "decode"
     cuda = torch.device(device).type == "cuda"
     if use_pallas is None:
@@ -190,7 +227,8 @@ def attention(
     """Grouped-query attention, [B, Hq, Sq, D] in q's dtype, on the route
     `attention_route` picks. Both kernel routes take `_repeat_kv`'s
     expanded K/V, as the reference does; `kv_valid_len` stays on the
-    device (the decode kernel reads it there)."""
+    device (the decode kernel reads it there), and an unmasked decode call
+    reads Skv from `_all_valid_on`."""
     groups = q.shape[1] // k.shape[1]
     route = attention_route(
         q.shape, k.shape, device=q.device, dtype=q.dtype, causal=causal,
@@ -200,13 +238,24 @@ def attention(
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
     if route == "flash":
-        return ops.flash_attention(q, k, v, causal=True, use_pallas=True)
+        return ops.flash_attention(q, k, v, causal=causal, use_pallas=True)
     if route == "decode":
+        if kv_valid_len is None:
+            kv_valid_len = _all_valid_on(k.shape[2], q.device)
         return ops.decode_attention(q[:, :, 0], k, v, kv_valid_len,
                                     use_pallas=True)[:, :, None]
     return _plain_attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, kv_valid_len=kv_valid_len,
                             softmax_scale=softmax_scale)
+
+
+@functools.lru_cache(maxsize=64)
+def _all_valid_on(skv: int, device: torch.device) -> torch.Tensor:
+    """`skv` as one int32 on `device`, filled there once per (Skv,
+    device): the decode kernel's valid_len for an unmasked call, which
+    would otherwise be filled again for every layer of every step."""
+    with torch.inference_mode(False):
+        return torch.full((), skv, dtype=torch.int32, device=device)
 
 
 def _plain_attention(q, k, v, *, causal, window, q_offset, kv_valid_len,
@@ -256,3 +305,185 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """Plain GELU MLP (whisper style)."""
     return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] \
         + p["b2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-bucketed grouped matmul)
+# ---------------------------------------------------------------------------
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """`jax.lax.top_k`: the k largest along the last dim, a tie going to
+    the lower index (a stable descending sort; `torch.topk` promises no
+    order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot_counts(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """Per row of idx [B, K], how often each of n values occurs: [B, n] of
+    `dtype`, the reference's `one_hot(idx, n).sum(axis=1)`. A comparison,
+    not `F.one_hot`, which reads the indices' range back to the host."""
+    ar = torch.arange(n, device=idx.device)
+    return (idx[..., None] == ar).to(dtype).sum(dim=1)
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`take_along_axis(t, idx[..., None], axis=1)` for t [B, N, d] and
+    idx [B, M]: rows of t, [B, M, d]."""
+    return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+
+def moe_ffn(p, x: torch.Tensor, *, top_k: int,
+            capacity_factor: float = 1.25):
+    """Capacity-bucketed top-k MoE with per-sequence dispatch, op for op
+    the reference's: an fp32 router and softmax, top-k renormalised, a
+    stable argsort of the choices by expert and its inverse,
+    position-in-expert by a boundary cummax, capacity
+    C = min(max(int(cf * k * S / E), 1), S), the buckets gathered from
+    the sorted layout (no scatter), grouped SwiGLU products, the
+    un-dispatch through the inverse order and a sum over the k choices,
+    and the Switch aux loss. x [B, S, d]; returns (out [B, S, d], aux
+    fp32 scalar). Every size is a Python int: nothing is read back."""
+    B, S, dm = x.shape
+    E = p["w1"].shape[0]
+    C = min(max(int(capacity_factor * top_k * S / E), 1), S)
+    Sk = S * top_k
+    dev = x.device
+
+    logits = x.float() @ p["router"].float()                         # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _top_k(probs, top_k)                       # [B,S,k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = gate_idx.reshape(B, Sk)
+    flat_w = gate_vals.reshape(B, Sk)
+    token_of = (torch.arange(Sk, device=dev) // top_k)[None].expand(B, Sk)
+
+    order = torch.argsort(flat_e, dim=-1, stable=True)               # [B,Sk]
+    inv_order = torch.argsort(order, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    sw = torch.gather(flat_w, 1, order)
+    st = torch.gather(token_of, 1, order)
+
+    iota = torch.arange(Sk, device=dev)[None]
+    boundary = torch.cat([torch.ones(B, 1, dtype=torch.bool, device=dev),
+                          se[:, 1:] != se[:, :-1]], dim=-1)
+    group_start = torch.cummax(torch.where(boundary, iota, 0), dim=1).values
+    pos = iota - group_start
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)                    # [B,Sk]
+
+    xg = _take(x, st)                                                # [B,Sk,d]
+    # the bucket write without a scatter: expert e's entries start at
+    # prefix[e] in the sorted layout, and its kept slots are the first
+    # min(count, C) of them, so slot (e, c) is sorted position prefix[e] + c
+    counts = _one_hot_counts(flat_e, E, torch.int64)                 # [B,E]
+    prefix = torch.cumsum(counts, dim=-1) - counts
+    c_iota = torch.arange(C, device=dev)[None, None]
+    j = prefix[..., None] + c_iota                                   # [B,E,C]
+    valid = c_iota < counts.clamp(max=C)[..., None]
+    j_flat = j.reshape(B, E * C).clamp(0, Sk - 1)
+    bufe = _take(xg, j_flat)
+    bufe = torch.where(valid.reshape(B, E * C, 1), bufe, 0)
+    bufe = bufe.reshape(B, E, C, dm)
+    h = F.silu(torch.einsum("becd,edf->becf", bufe, p["w1"]))
+    h = h * torch.einsum("becd,edf->becf", bufe, p["w3"])
+    y = torch.einsum("becf,efd->becd", h, p["w2"]).reshape(B, E * C, dm)
+    y = torch.cat([y, y.new_zeros(B, 1, dm)], dim=1)
+
+    contrib = _take(y, slot)
+    contrib = contrib * (sw * keep)[..., None].to(y.dtype)           # [B,Sk,d]
+    # un-dispatch: undo the sort, then fold the k choices per token
+    contrib = _take(contrib, inv_order)
+    out = contrib.reshape(B, S, top_k, dm).sum(dim=2)
+
+    # Switch-style aux loss: E * sum_e fraction_e * mean_prob_e
+    frac = _one_hot_counts(flat_e, E, torch.float32) / Sk            # [B,E]
+    aux = E * (frac * probs.mean(dim=1)).sum(dim=-1).mean()
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD: state-space duality, chunked scan)
+# ---------------------------------------------------------------------------
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: out[..., i, j] = sum_{j < t <= i} x[..., t].
+    Lower-triangular; -inf above the diagonal."""
+    t = x.shape[-1]
+    x_cum = torch.cumsum(x, dim=-1)
+    diff = x_cum[..., :, None] - x_cum[..., None, :]
+    mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+                init_state: Optional[torch.Tensor] = None):
+    """Mamba2 SSD forward (Dao & Gu 2024, Listing 1) in chunked form: the
+    quadratic attention-like term inside each chunk and the linear state
+    recurrence across chunks, a Python loop over chunks with an fp32
+    state. x [B, S, H, P], dt [B, S, H] (post-softplus), A [H] (negative),
+    Bm / Cm [B, S, G, N], init_state [B, H, P, N]. Returns (y [B, S, H,
+    P] in x's dtype, final state [B, H, P, N] in x's dtype)."""
+    b, s, h, p_dim = x.shape
+    n = Bm.shape[3]
+    assert s % chunk == 0, (s, chunk)
+    rep = h // Bm.shape[2]
+    state = (init_state.float() if init_state is not None
+             else torch.zeros(b, h, p_dim, n, dtype=torch.float32,
+                              device=x.device))
+    ys = []
+    for lo in range(0, s, chunk):
+        xci, dtci = x[:, lo:lo + chunk], dt[:, lo:lo + chunk]
+        Bh = Bm[:, lo:lo + chunk].repeat_interleave(rep, dim=2)   # [b,l,h,n]
+        Ch = Cm[:, lo:lo + chunk].repeat_interleave(rep, dim=2)
+        dA = (dtci * A[None, None, :]).movedim(-1, 1)             # [b,h,l]
+        dA_cs = torch.cumsum(dA, dim=-1)
+        Lm = torch.exp(_segsum(dA))                               # [b,h,l,l]
+        CB = torch.einsum("blhn,bshn->bhls", Ch, Bh)
+        scores = CB * Lm
+        xdt = (xci * dtci[..., None]).float()                     # [b,l,h,p]
+        y_diag = torch.einsum("bhls,bshp->blhp", scores, xdt)
+        decay_to_end = torch.exp(dA_cs[..., -1:] - dA_cs)         # [b,h,l]
+        chunk_state = torch.einsum("blhn,bhl,blhp->bhpn", Bh.float(),
+                                   decay_to_end, xdt)
+        decay_in = torch.exp(dA_cs)                               # [b,h,l]
+        y_off = torch.einsum("blhn,bhl,bhpn->blhp", Ch.float(), decay_in,
+                             state)
+        chunk_decay = torch.exp(dA_cs[..., -1])                   # [b,h]
+        state = state * chunk_decay[..., None, None] + chunk_state
+        ys.append((y_diag + y_off).to(x.dtype))
+    return torch.cat(ys, dim=1), state.to(x.dtype)
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor):
+    """One-token SSM update: h' = exp(dt A) h + dt * x B^T; y = h' C.
+    x [B, H, P], dt [B, H], Bm / Cm [B, G, N], state [B, H, P, N].
+    Returns (y [B, H, P] in x's dtype, new state in state's dtype)."""
+    rep = state.shape[1] // Bm.shape[1]
+    Bh = Bm.repeat_interleave(rep, dim=1).float()                 # [B,H,N]
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    decay = torch.exp(dt * A[None, :])[..., None, None]           # [B,H,1,1]
+    add = (dt[..., None] * x.float())[..., None] * Bh[:, :, None, :]
+    new_state = state.float() * decay + add
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x.dtype), new_state.to(state.dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
+    """Depthwise causal conv, x [B, S, C], w [W, C]: the W shifted
+    products summed in x's dtype in the reference's order (not
+    `F.conv1d`, whose bf16 accumulation rounds otherwise). With `state`
+    [B, W-1, C] it streams and returns (y, new_state)."""
+    width = w.shape[0]
+    if state is not None:
+        full = torch.cat([state, x], dim=1)
+        new_state = full[:, -(width - 1):, :]
+        y = sum(full[:, i:i + x.shape[1], :] * w[i] for i in range(width))
+        return y, new_state
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    return sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(width))

@@ -1,6 +1,6 @@
-"""The port's example drivers can't rot: both run end to end at tiny
-scale on the CPU, as subprocesses (exactly how a user runs them), and
-print what tests/test_examples.py asserts of the reference's drivers."""
+"""The port's example drivers can't rot: each runs end to end at tiny
+scale on the CPU, as a subprocess (exactly how a user runs it), and
+prints what tests/test_examples.py asserts of the reference's drivers."""
 
 import os
 import subprocess
@@ -40,3 +40,15 @@ def test_torch_partitioning_study_runs():
     assert "DistDGL regime" in out
     assert "serving regime" in out
     assert "hit_rate" in out
+
+
+def test_torch_serve_decode_runs():
+    """The twin of examples/serve_decode.py at its defaults (mamba2-370m's
+    smoke config, batch 4, prompt 64, 32 tokens): its two lines."""
+    r = _run("torch_serve_decode.py")
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 2, r.stdout
+    assert lines[0].startswith("[example] mamba2-370m: generated 4x32 tokens;")
+    first = lines[1].removeprefix("[example] first sequence: ")
+    assert first != lines[1] and len(first.strip("[]").split(",")) == 20

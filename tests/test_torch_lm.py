@@ -1,5 +1,7 @@
 """The port's LM serving path (configs, models/layers.py, models/lm.py,
-launch/serve.py) against the JAX package's, on the CPU.
+launch/serve.py) against the JAX package's, on the CPU: the configs, the
+dense layers and the dense family (the other families:
+tests/test_torch_lm_families.py).
 
 Inputs are made with NumPy from a seed and handed to both packages; the
 reference's weights are carried across with `lm.params_from_reference`, so
@@ -412,27 +414,6 @@ def test_prefill_then_decode_consistent(arch):
         full, _ = lm.prefill(tc, params, {"tokens": tokens}, max_len=S + 8)
     np.testing.assert_allclose(dec.float().numpy(), full.float().numpy(),
                                rtol=0.15, atol=0.15)
-
-
-@pytest.mark.parametrize("arch", [a for a in jbase.ARCH_IDS
-                                  if jbase.get_config(a).family != "dense"])
-def test_other_families_are_refused(arch):
-    """Each entry point refuses a family this slice does not port, naming
-    the ROADMAP slice that brings it."""
-    tc = tbase.smoke_config(arch)
-    slice_name = lm.FAMILY_SLICES[tc.family]
-    tokens = torch.zeros(1, 4, dtype=torch.int32)
-    calls = [
-        lambda: lm.init_params(tc, torch.Generator(), "cpu"),
-        lambda: lm.prefill(tc, {}, {"tokens": tokens}),
-        lambda: lm.decode_step(tc, {}, tokens[:, :1], {}, 4),
-        lambda: lm.loss_fn(tc, {}, {"tokens": tokens}),
-        lambda: lm.init_cache(tc, 1, 8, device="cpu"),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(slice_name)):
-            call()
 
 
 def test_set_activation_sharding_takes_only_none():
