@@ -286,6 +286,28 @@ and raises on them all at its end):
                run's), each check shown to reject a zeroed attention
                output (mamba2 has none), and prefill-then-decode for all
                but the MoE family (exempt in the reference).
+ 16. dist    — full-batch training with one process a partition (mode
+               "dist", the twin of the reference's shard_map) at phase 7's
+               configuration (OR 1.0, hep100 / blockrow, k=4, widths 512,
+               3 layers, tiled, seed 0, lr 1e-3): the kernel timed first
+               at every (combiner, rows, F) a rank launches it at (rank
+               0's layout: a partition's 17,408 halo rows, a chunk's 6,400
+               ring rows; `dist_shapes`); then the sim step of the same
+               trainer on the card (`DIST_RUNS`: halo SAGE and GAT, 3
+               steps; ring GAT, 2), the parent's cached blocks released,
+               and 4 ranks spawned on the one card under gloo
+               (`launch/ranks.py`, `gnn/dist_jobs.py`), each run twice from
+               scratch. Every rank reports the same losses and parameters,
+               the second run repeats the first bit for bit, every rank
+               launched the kernel as `expected_launches` counts (ring:
+               once a stage) at its rows, a forward hands each rank's
+               collectives the accounting's bytes / k, the losses are
+               within LOSS_TOL of the sim's and the logits within
+               DIST_LOGIT_TOL. Prints each rank's step seconds, the share
+               of its wall in staging and gloo, its peak memory and bytes
+               a step, beside the sim's step seconds. With a card a rank,
+               the NCCL leg runs halo GAT the same way; on one card it
+               prints that it did not run, and why.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
@@ -293,14 +315,15 @@ made at that shape (phases 7-12 fail if they launched the kernel at a
 shape phase 5 did not time),
 one per (attention kernel, shape, dtype) of phase 6, one per (kernel,
 shape, dtype) phase 14's full-width run launched, and one per (kernel,
-shape) phase 15's runs launched (`launches_by_run` by arch), then the
+shape) phase 15's runs launched (`launches_by_run` by arch), one per
+per-rank shape phase 16 timed with the launches its ranks made, then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
 phase 10's under "robust", phase 11's under "trace", phase 12's under
 "study", phase 13's under "lint", phase 14's under "lm", phase 15's
-under "lm_families") to
+under "lm_families", phase 16's under "dist") to
 chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
@@ -310,6 +333,8 @@ mini-batch step at phase 8's.
 `python3 chip_smoke.py --aggregate-host` runs only the device and build
 phases and `phase_aggregate_host`: the host time a call and a served batch
 of `ops.aggregate`'s autograd Function under inference_mode.
+`python3 chip_smoke.py --dist` runs only the device and build phases and
+phase 16.
 
 It exits non-zero when no GPU is visible and when `src/repro_torch` is not
 beside it. It imports nothing of JAX and nothing of `repro`.
@@ -4085,6 +4110,302 @@ def _attn_entry(name, source, replaces, launches, err, ms, plain_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# --------------------------------------------------------------- phase 16
+# the dist phase: phase 7's configuration (TRAIN_WIDTH, tiled) with one
+# process a partition, the twin of the reference's shard_map mode; each
+# run against the sim step of the same trainer on the card, twice
+DIST_RUNS = [("halo", "sage", 3), ("halo", "gat", 3), ("ring", "gat", 2)]
+DIST_NCCL_RUN = ("halo", "gat", 3)
+# the first step's gradient (the mean over the ranks of each rank's
+# k * dL/dW_j) against the sim's dL/dW: the largest |dist - sim| of a leaf
+# over that leaf's largest |sim|. A gradient off by a constant factor (k,
+# the psum adjoint's) reads >= 0.75. Readings on the H100 (seed 0): halo
+# SAGE 3.3e-4, halo GAT 2.3e-5, ring GAT 8.3e-7 (a rank's split segments
+# round apart from the stack's, as below)
+DIST_GRAD_TOL = 1e-3
+# logits against the sim's, |dist - sim| / (1 + |sim|). Of the initial
+# parameters: the reference's own multi-device tolerance
+# (tests/test_dist_lowering.py:96); the kernel's split segments differ
+# between a rank's [R] rows and the stack's [k * R], so sums round apart.
+# After the steps, by model: Adam moves every weight by about lr a step
+# whatever its gradient's size, so a gradient element near 0 whose last
+# bits differ between the two summation orders takes a step of up to lr
+# the other way. Readings on the H100 (seed 0): SAGE 1.34e-3 and 1.9e-3,
+# GAT 7.3e-6 (halo) and 7.4e-6 (ring); the gradient itself is held above
+DIST_LOGIT_TOL = {"logits_before": {"sage": 2e-4, "gat": 2e-4},
+                  "logits_after": {"sage": 4e-3, "gat": 1e-4}}
+DIST_TIMEOUT = 900.0
+DIST_DEVICE = "cuda"
+
+
+def dist_problem(gnn_train, ep, fullbatch):
+    """Phase 7's problem and books on the host: the hep100 halo book
+    (phase 7's own when it ran in this process) and the blockrow ring
+    book, both with the tiled layout."""
+    args = gnn_train.parser().parse_args(
+        TRAIN_WIDTH + ["--model", "gat", "--agg-backend", "tiled"])
+    g, feats, labels, train_mask, spec = gnn_train.problem(args)
+    halo = STUDY_CLI.get("fullbatch gat tiled halo", {}).get("book")
+    if halo is None:
+        halo = fullbatch.build_book(
+            g, ep.partition_edges(g, args.k, args.partitioner,
+                                  seed=args.seed),
+            args.k, sync_mode="halo", tiled_layout=True)
+    ring = fullbatch.build_book(g, None, args.k, sync_mode="ring",
+                                tiled_layout=True)
+    problem = dict(features=feats, labels=labels, train_mask=train_mask)
+    return args, spec, {"halo": halo, "ring": ring}, problem
+
+
+def dist_shapes(torch, tiling, spec, books) -> dict:
+    """Rank 0's layout at every (combiner, rows, F) a dist rank launches
+    the kernel at (halo: R rows of one partition; ring: one chunk's),
+    for `phase_shapes` (the stack's k * R rows are phase 5's)."""
+    seen = {}
+    for sync, book in books.items():
+        if sync == "ring":
+            n, ldst = book.v_block + 1, book.chunk_agg_ldst[0, 0]
+        else:
+            n, ldst = book.v_max + 1, book.agg_ldst[0]
+        rows = tiling.tiled_shape(n, 256)[0]
+        t = torch.as_tensor(np.ascontiguousarray(ldst), device=DIST_DEVICE)
+        for model in ("gat", "sage"):
+            for c, f in expected_launches(
+                    dataclasses.replace(spec, model=model), 1):
+                seen[(c, rows, f)] = (t, torch.float32,
+                                      {"tile_v": 256, "block_e": 512})
+    return seen
+
+
+def _dist_sim(torch, fullbatch, models, book, spec, sync, steps, args,
+              problem):
+    """The sim trainer on the card over the same book: its first
+    gradient dL/dW, its logits before and after, losses and step
+    seconds."""
+    tr = fullbatch.FullBatchTrainer.from_book(
+        book, spec, sync_mode=sync, seed=args.seed, lr=float(TRAIN_LR),
+        device=torch.device(DIST_DEVICE), **problem)
+    loss_of, _ = tr._step_fns
+    _, grads = models.per_partition_grads(
+        lambda p: loss_of(p, tr.blocks), tr.params, k=book.k, stacked=False)
+    grads = [{key: g.cpu().numpy() for key, g in layer.items()}
+             for layer in grads["layers"]]
+    before = tr.forward_logits_global()
+    losses, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(tr.train_step())
+        seconds.append(time.perf_counter() - t0)
+    after = tr.forward_logits_global()
+    del tr
+    torch.cuda.empty_cache()
+    return {"grads": grads, "logits_before": before, "logits_after": after,
+            "losses": losses, "step_seconds": seconds}
+
+
+def _hold_rank_launches(what, launches, want, rows) -> None:
+    got = _by_combiner_width(launches)
+    assert got == want and {r for (_, r, _) in launches} == {rows}, (
+        f"{what} launched {launches}, expected {want} at rows {rows}")
+
+
+def _hold_dist(name, runs, sim, spec, steps, stages, rows, book, sync_mod,
+               sync):
+    """One dist training beside its sim twin: every rank's losses and
+    parameters the same bits, the second run == the first bit for bit,
+    the kernel launched as `expected_launches` counts on every rank at the
+    rank's rows, a forward's bytes == the accounting / k. Returns the
+    summary, with the first gradient, losses and logits against the sim's
+    (held by `_hold_dist_vs_sim` once printed), and the launches (summed
+    over ranks and runs)."""
+    k = len(runs)
+    first = runs[0]["runs"][0]
+    for rank, res in enumerate(runs):
+        assert res["jax_loaded"] is False, f"{name}: rank {rank} loaded jax"
+        a, b = res["runs"][0], res["runs"][-1]
+        assert a["losses"] == first["losses"], (
+            f"{name}: rank {rank} losses {a['losses']} vs rank 0's "
+            f"{first['losses']}")
+        for pa, p0, pb in zip(a["params"]["layers"],
+                              first["params"]["layers"],
+                              b["params"]["layers"]):
+            for key in pa:
+                assert np.array_equal(pa[key], p0[key]), (
+                    f"{name}: rank {rank} {key} differs from rank 0's")
+                assert np.array_equal(pa[key], pb[key]), (
+                    f"{name}: rank {rank} {key}: the second run differs")
+        assert a["losses"] == b["losses"], (
+            f"{name}: rank {rank} second run {b['losses']} vs {a['losses']}")
+        _hold_rank_launches(f"{name}: rank {rank}", a["launches"],
+                            expected_launches(spec, steps, stages), rows)
+        sent = sum(a["forward_sent"].values())
+        acct = sum(sync_mod.sync_bytes_per_round(book, d, sync)
+                   for dims in spec.aggregate_dims(sync) for d in dims)
+        assert sent * k == acct, (
+            f"{name}: rank {rank} forward handed {sent} B, accounting "
+            f"{acct} / {k}")
+    grad_err = 0.0
+    for res in runs:
+        for got, want in zip(res["runs"][0]["grads"]["layers"],
+                             sim["grads"]):
+            for key, w in want.items():
+                g = got[key]
+                assert g.shape == w.shape and np.isfinite(g).all()
+                grad_err = max(grad_err, float(
+                    np.max(np.abs(g - w)) / max(np.max(np.abs(w)), 1e-30)))
+    errs = {}
+    for when in ("logits_before", "logits_after"):
+        got, want = first[when], sim[when]
+        assert got.shape == want.shape and np.isfinite(got).all()
+        errs[when] = float(np.max(np.abs(got - want)
+                                  / (1.0 + np.abs(want))))
+    launches = {}
+    for res in runs:
+        for run in res["runs"]:
+            for key, n in run["launches"].items():
+                launches[key] = launches.get(key, 0) + n
+    per_rank = []
+    for rank, res in enumerate(runs):
+        a = res["runs"][0]
+        walls = a["step_seconds"]
+        per_rank.append({
+            "step_seconds": walls,
+            "warm_step_seconds": float(np.median(walls[1:])),
+            "stage_share": [c / w for c, w in zip(a["stage_seconds"],
+                                                   walls)],
+            "collective_share": [c / w for c, w in
+                                 zip(a["collective_seconds"], walls)],
+            "peak_bytes": a["peak_bytes"],
+            "forward_bytes": sum(a["forward_sent"].values()),
+            "step_bytes": [sum(x.values()) for x in a["step_sent"]],
+            "launches_per_step": {f"{c} F={f}": n / steps for (c, _, f), n
+                                  in sorted(a["launches"].items())}})
+    dloss = max(abs(a - b) for a, b in zip(first["losses"], sim["losses"]))
+    # a rank's seconds inside gloo hold its wait for the slowest peer; the
+    # least over the ranks is the nearest to the transport alone
+    least = [min(r["collective_share"][i] for r in per_rank)
+             for i in range(steps)]
+    return {"losses": first["losses"], "sim_losses": sim["losses"],
+            "sim_step_seconds": sim["step_seconds"], "model": spec.model,
+            "max_abs_dloss_vs_sim": dloss, "grad_err": grad_err,
+            "logit_err": errs, "least_collective_share": least,
+            "ranks": per_rank}, launches
+
+
+def _hold_dist_vs_sim(name, res) -> None:
+    """The dist run's first gradient within DIST_GRAD_TOL of the sim's on
+    every rank, its losses within LOSS_TOL, its logits within
+    DIST_LOGIT_TOL (|dist - sim| / (1 + |sim|), the largest)."""
+    assert res["grad_err"] <= DIST_GRAD_TOL, (
+        f"{name} first gradient: error {res['grad_err']:.3g} over "
+        f"{DIST_GRAD_TOL}")
+    hold_losses(res["losses"], res["sim_losses"], f"{name} vs sim")
+    for when, err in res["logit_err"].items():
+        tol = DIST_LOGIT_TOL[when][res["model"]]
+        assert err <= tol, f"{name} {when}: error {err:.3g} over {tol}"
+
+
+def phase_dist(torch, spmm, tiling, gnn_train, ep, fullbatch, models,
+               sync_mod, ranks, dist_jobs) -> tuple[dict, dict, dict]:
+    """Full-batch training with one process a partition (mode "dist"), 4
+    ranks on the one card under gloo, at phase 7's widths: DIST_RUNS,
+    each twice from scratch in the same ranks, held against the sim step
+    of the same trainer on the card (`_hold_dist`); then the NCCL leg when
+    there is a card a rank. Times the kernel at the ranks' shapes first
+    (`dist_shapes`). Returns the results, the launches by run and the
+    shapes' rows."""
+    t0 = time.perf_counter()
+    args, spec, books, problem = dist_problem(gnn_train, ep, fullbatch)
+    say(f"[dist] books: halo (hep100) bucket {books['halo'].bucket}, v_max "
+        f"{books['halo'].v_max}; ring v_block {books['ring'].v_block}, "
+        f"c_max {books['ring'].c_max} ({time.perf_counter() - t0:.1f}s)")
+    shape_rows = phase_shapes(torch, spmm, dist_shapes(torch, tiling, spec,
+                                                       books))
+    sims, jobs = {}, []
+    for sync, model, steps in DIST_RUNS:
+        m_spec = dataclasses.replace(spec, model=model)
+        sims[(sync, model)] = _dist_sim(torch, fullbatch, models,
+                                        books[sync], m_spec, sync, steps,
+                                        args, problem)
+        jobs.append(("train", dict(
+            book=books[sync], spec=m_spec, sync_mode=sync, steps=steps,
+            seed=args.seed, lr=float(TRAIN_LR), runs=2, grads=True,
+            **problem)))
+    t_sim = time.perf_counter() - t0
+    # the ranks' allocator is training's; the parent's cached blocks go
+    # back to the card before they start
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = gnn_train.TRAIN_ALLOC_CONF
+    torch.cuda.empty_cache()
+    say(f"[dist] parent holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB on the card; spawning {args.k} gloo ranks")
+    t1 = time.perf_counter()
+    got = ranks.run_ranks(dist_jobs.run_jobs, args.k, backend="gloo",
+                          device=DIST_DEVICE, args=(jobs,),
+                          timeout=DIST_TIMEOUT)
+    t_ranks = time.perf_counter() - t1
+    results, launches = {"backend": "gloo", "ranks": args.k}, {}
+    for i, (sync, model, steps) in enumerate(DIST_RUNS):
+        book = books[sync]
+        n = book.v_block + 1 if sync == "ring" else book.v_max + 1
+        rows = tiling.tiled_shape(n, 256)[0]
+        name = f"dist {sync} {model}"
+        res, launches[name] = _hold_dist(
+            name, [r[i] for r in got], sims[(sync, model)],
+            dataclasses.replace(spec, model=model), steps,
+            args.k if sync == "ring" else 1, rows, book, sync_mod, sync)
+        results[f"{sync} {model}"] = res
+        say(f"[dist] {name} (gloo, {args.k} ranks on one card): losses "
+            f"{res['losses']} vs sim {res['sim_losses']} (max |dloss| "
+            f"{res['max_abs_dloss_vs_sim']:.3g}), first gradient error "
+            f"{res['grad_err']:.3g} (limit {DIST_GRAD_TOL}), logits error "
+            f"{res['logit_err']} (limits {DIST_LOGIT_TOL}); a second run "
+            f"equal bit for bit; share of a step inside gloo, least over "
+            f"the ranks "
+            f"{[round(x, 3) for x in res['least_collective_share']]}")
+        say(f"[dist]   sim step seconds "
+            f"{[round(x, 4) for x in res['sim_step_seconds']]}; a forward "
+            f"hands each rank's collectives "
+            f"{res['ranks'][0]['forward_bytes']} B == the accounting / k")
+        for rank, r in enumerate(res["ranks"]):
+            say(f"[dist]   rank {rank}: step seconds "
+                f"{[round(x, 4) for x in r['step_seconds']]}, warm "
+                f"{r['warm_step_seconds']:.4f}s, share staging "
+                f"{[round(x, 3) for x in r['stage_share']]} and inside gloo "
+                f"{[round(x, 3) for x in r['collective_share']]}, peak "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB, bytes a step "
+                f"{r['step_bytes']}, launches a step "
+                f"{r['launches_per_step']}")
+        _hold_dist_vs_sim(name, res)
+    if torch.cuda.device_count() >= args.k:
+        sync, model, steps = DIST_NCCL_RUN
+        job = dict(jobs[[r[:2] for r in DIST_RUNS].index((sync, model))][1],
+                   runs=2)
+        got = ranks.run_ranks(dist_jobs.run_jobs, args.k, backend="nccl",
+                              device="cuda", args=([("train", job)],),
+                              timeout=DIST_TIMEOUT)
+        book = books[sync]
+        res, launches[f"dist nccl {sync} {model}"] = _hold_dist(
+            f"dist nccl {sync} {model}", [r[0] for r in got],
+            sims[(sync, model)], job["spec"], steps, 1,
+            tiling.tiled_shape(book.v_max + 1, 256)[0], book, sync_mod, sync)
+        results[f"nccl {sync} {model}"] = res
+        say(f"[dist] nccl {sync} {model} ({args.k} cards): losses "
+            f"{res['losses']} vs sim {res['sim_losses']}, first gradient "
+            f"error {res['grad_err']:.3g}, logits error "
+            f"{res['logit_err']}, rank step seconds "
+            f"{[r['step_seconds'] for r in res['ranks']]}")
+        _hold_dist_vs_sim(f"dist nccl {sync} {model}", res)
+    else:
+        results["nccl"] = (f"not run: {torch.cuda.device_count()} card(s) "
+                           f"visible; NCCL needs one card a rank")
+        say(f"[dist] NCCL leg {results['nccl']}")
+    results.update(seconds=time.perf_counter() - t0, sim_seconds=t_sim,
+                   ranks_seconds=t_ranks)
+    say(f"[dist] phase {results['seconds']:.1f}s (shapes and sim "
+        f"{t_sim:.1f}s, ranks {t_ranks:.1f}s)")
+    return results, launches, shape_rows
+
+
 # --------------------------------------------------------------- profile
 def _profiled(torch, fn, what: str) -> None:
     """Run `fn` once under torch.profiler; print device time by op and the
@@ -4269,9 +4590,10 @@ def main() -> int:
     from repro_torch.core import wire
     from repro_torch.core.vertex_partition import partition_vertices
     from repro_torch import obs
-    from repro_torch.gnn import fullbatch, minibatch, models
+    from repro_torch.gnn import dist_jobs, fullbatch, minibatch, models
+    from repro_torch.gnn import sync as sync_mod
     from repro_torch.kernels import ref
-    from repro_torch.launch import gnn_serve, gnn_trace, gnn_train
+    from repro_torch.launch import gnn_serve, gnn_trace, gnn_train, ranks
     from repro_torch.core import cost_model, metrics, study
     from repro_torch.fault import FaultPlan
     from repro_torch.gnn import inference
@@ -4286,6 +4608,10 @@ def main() -> int:
         return 0
     if "--aggregate-host" in sys.argv[1:]:
         phase_aggregate_host(torch, ops, tiling, gnn_serve)
+        return 0
+    if "--dist" in sys.argv[1:]:
+        phase_dist(torch, spmm, tiling, gnn_train, ep, fullbatch, models,
+                   sync_mod, ranks, dist_jobs)
         return 0
     rows_out = phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod)
     say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
@@ -4337,9 +4663,14 @@ def main() -> int:
     family_entries, train["lm_families"] = phase_lm_families(
         torch, flash, decode, smi)
     say(f"[time] lm families {time.perf_counter() - t_start:.1f}s")
+    train["dist"], dist_launches, dist_rows = phase_dist(
+        torch, spmm, tiling, gnn_train, ep, fullbatch, models, sync_mod,
+        ranks, dist_jobs)
+    say(f"[time] dist {time.perf_counter() - t_start:.1f}s")
+    shapes.update(dist_rows)
     for run, n in {**train_launches, **mb_launches, **codec_launches,
                    **robust_launches, **trace_launches,
-                   **study_launches}.items():
+                   **study_launches, **dist_launches}.items():
         assert set(n) <= set(shapes), (
             f"{run} launched the kernel at shapes phase 5 did not time: "
             f"{sorted(set(n) - set(shapes))}")
@@ -4349,6 +4680,7 @@ def main() -> int:
     launches.update(robust_launches)
     launches.update(trace_launches)
     launches.update(study_launches)
+    launches.update(dist_launches)
 
     kernels = []
     for (combiner, rows, f), row in shapes.items():

@@ -58,6 +58,7 @@ from typing import Any, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import pmean_tree
 from repro_torch.optim.adam import tree_map
 from repro_torch.optim.compress import (
     CompressionState,
@@ -336,27 +337,35 @@ def ef_from_numpy(tree, device) -> Any:
         tree)
 
 
-def codec_grad_reduce(codec: Codec, grads, ef, *, stacked: bool):
+def codec_grad_reduce(codec: Codec, grads, ef, *, stacked: bool,
+                      mesh=None):
     """Data-parallel gradient mean through the codec, with error feedback.
 
     `stacked=True`: every leaf holds the k partitions' gradients as its
     leading dimension, and the reduce is their mean (the reference's
     `pmean`: the sum over k, over k); the EF carry is stacked alike.
-    `stacked=False` (k == 1): no reduce, but the quantisation and EF still
+    `mesh` (launch/mesh.py, the twin of the reference's `axis`): the
+    gradients and the carry are this rank's, and the mean runs over the
+    ranks. Neither (k == 1): no reduce, but the quantisation and EF still
     apply, as in the reference's `axis=None`. Returns (mean grads without
     the partition dimension, new EF). Lossless codecs leave the EF as it
     is (zero forever)."""
+    if stacked and mesh is not None:
+        raise ValueError("gradients are stacked or a rank's, not both")
 
-    def mean(g):
-        return g.sum(0) / g.shape[0] if stacked else g
+    def mean(tree):
+        if mesh is not None:
+            return pmean_tree(tree, mesh)
+        return tree_map(lambda g: g.sum(0) / g.shape[0] if stacked else g,
+                        tree)
 
     if codec.lossless:
-        return tree_map(mean, grads), ef
+        return mean(grads), ef
 
     if codec.name == "int8":
         state = CompressionState(error=ef)
-        if stacked:
-            reduced, state = compressed_psum(grads, state)
+        if stacked or mesh is not None:
+            reduced, state = compressed_psum(grads, state, mesh=mesh)
             return reduced, state.error
         qs, scales, state = compress(grads, state)
         return decompress(qs, scales), state.error
@@ -367,5 +376,5 @@ def codec_grad_reduce(codec: Codec, grads, ef, *, stacked: bool):
         return deq, corrected - deq
 
     pairs = tree_map(one, grads, ef)
-    return (tree_map(lambda p: mean(p[0]), pairs),
+    return (mean(tree_map(lambda p: p[0], pairs)),
             tree_map(lambda p: p[1], pairs))

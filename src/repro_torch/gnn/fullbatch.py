@@ -1,14 +1,25 @@
 """Distributed full-batch GNN training (vertex-cut halo/dense + 1.5D ring).
 
-Twin of repro/gnn/fullbatch.py in its sim mode. The reference runs the
-per-device program under `jax.vmap` over the stacked [k, ...] blocks; here
-every tensor already carries the k partitions as its leading dimension
-(gnn/sync.py), so the stacked tensors are the sim mode, and autograd
-through them stands in for the vmap backward. The step is composed from
-the reference's stage functions:
+Twin of repro/gnn/fullbatch.py in both of its multi-partition modes. The
+per-partition program (models.py + sync.py) is the same in each:
+
+  mode="sim"   the reference's `jax.vmap` over the stacked [k, ...]
+               blocks: every tensor carries the k partitions as its
+               leading dimension (gnn/sync.py), a collective is a tensor
+               op over it, and autograd through the stack stands in for
+               the vmap backward. One process, one device.
+  mode="dist"  the reference's `jax.shard_map` over a real mesh axis
+               (`wrap_spmd`, `FullBatchTrainer.mode`): one process a
+               partition, each a rank of a `torch.distributed` group
+               (launch/mesh.py; launch/ranks.py spawns them). A rank holds
+               its own block (the sim's tables and padding, its slice) and
+               its collectives run over the group (core/collectives.py).
+
+The step is composed from the reference's stage functions:
 
   build_book          partition layout     (edge book | 1.5D block rows)
-  build_device_blocks static device state  (stacked `Block` | `RingBlock`)
+  build_device_blocks static device state  (`Block` | `RingBlock`, stacked,
+                                            or one rank's)
   make_step_fns       loss / forward closed over the SyncStrategy
 
 `FullBatchTrainer` composes them and trains with the reference's Adam
@@ -21,8 +32,15 @@ partition's gradient k * dL/dW_j through per-partition parameter copies
 (`codec_grad_reduce`), then Adam on the mean. Either step runs under
 PyTorch's deterministic algorithms (`minibatch.repeatable_step`), as the
 mini-batch step does, so it repeats bit for bit on the CPU and on the
-card, scatter backend included. The shard_map mode is not yet ported
-(ROADMAP queue 1, item 4).
+card, scatter backend included.
+
+In the dist mode every rank computes the global loss L (the loss's
+`sync.psum` is an all-reduce), so the adjoint of that psum hands each
+rank k times its share: rank j's backward gives k * dL/dW_j, the sim's
+per-partition gradient. The lossless step takes their mean over the ranks
+(one all-reduce), which is dL/dW, the sim step's gradient; the lossy step
+feeds them to the EF reduce over the group, each rank with its own carry.
+Every rank then takes the same Adam step on the same mean.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition_book import (
     BlockRowBook,
@@ -63,6 +82,8 @@ from repro_torch.optim import (
     tree_map,
 )
 
+MODES = ("sim", "dist")
+
 
 def build_book(
     graph: Graph,
@@ -87,12 +108,14 @@ def build_book(
                            tiled_layout=tiled_layout)
 
 
-def build_device_blocks(book, features, labels, train_mask, *, device):
-    """Stacked [k, ...] device blocks matching the book's layout."""
-    if isinstance(book, BlockRowBook):
-        return build_ring_blocks(book, features, labels, train_mask,
-                                 device=device)
-    return build_blocks(book, features, labels, train_mask, device=device)
+def build_device_blocks(book, features, labels, train_mask, *, device,
+                        part: Optional[int] = None):
+    """Device blocks matching the book's layout: the k partitions stacked
+    [k, ...], or with `part` that partition alone (a stack of one)."""
+    build = build_ring_blocks if isinstance(book, BlockRowBook) else \
+        build_blocks
+    return build(book, features, labels, train_mask, device=device,
+                 part=part)
 
 
 def resolve_sync_mode(sync_mode: str, k: int) -> str:
@@ -104,18 +127,21 @@ def resolve_sync_mode(sync_mode: str, k: int) -> str:
     return sync_mode
 
 
-def make_step_fns(spec: GNNSpec, sync_mode: str, k: int, codec=None):
+def make_step_fns(spec: GNNSpec, sync_mode: str, k: int, codec=None,
+                  mesh=None):
     """(loss_fn, forward_fn), each `(params, blk) -> ...` over the stacked
-    partitions: the loss a scalar, the logits [k, n, C]."""
+    partitions, or with `mesh` over this rank's block: the loss a scalar
+    (the global loss, on every rank), the logits [k, n, C] ([1, n, C] on
+    a rank)."""
     mode = resolve_sync_mode(sync_mode, k)
 
     def loss(params, blk):
         return models.loss_fn(spec, params, blk.x, blk,
-                              make_sync(mode, blk, codec=codec))
+                              make_sync(mode, blk, codec=codec, mesh=mesh))
 
     def forward(params, blk):
         return models.forward(spec, params, blk.x, blk,
-                              make_sync(mode, blk, codec=codec))
+                              make_sync(mode, blk, codec=codec, mesh=mesh))
 
     return loss, forward
 
@@ -124,13 +150,15 @@ def make_step_fns(spec: GNNSpec, sync_mode: str, k: int, codec=None):
 class FullBatchTrainer:
     spec: GNNSpec
     book: Any                          # EdgePartitionBook | BlockRowBook
-    blocks: Any                        # Block | RingBlock, stacked [k, ...]
+    blocks: Any                        # Block | RingBlock: stacked, or a rank's
     sync_mode: str = "halo"            # local | dense | halo | ring
     params: Any = None
     opt_state: Optional[AdamState] = None
     lr: float = 1e-2
     codec: Any = None                  # wire codec name/instance (None=fp32)
     ef_state: Any = None               # error-feedback carry (lossy codecs)
+    mode: str = "sim"                  # sim (vmap) | dist (shard_map)
+    mesh: Any = None                   # launch.mesh.Mesh of the dist mode
 
     @classmethod
     def build(
@@ -144,32 +172,69 @@ class FullBatchTrainer:
         train_mask: np.ndarray,
         *,
         sync_mode: str = "halo",
+        mode: str = "sim",
+        mesh=None,
         seed: int = 0,
         lr: float = 1e-2,
         codec=None,
-        device: torch.device,
+        device: Optional[torch.device] = None,
     ) -> "FullBatchTrainer":
+        """Partition layout, device blocks and parameters. `mode="dist"`
+        runs in each of k ranks with this rank's `mesh` (launch/mesh.py)
+        and builds this rank's block on `mesh.device`; every rank must
+        pass the same arguments. `from_book` takes a layout already built
+        (by a parent process, once for all ranks)."""
         book = build_book(
             graph, edge_assignment, k, sync_mode=sync_mode,
             tiled_layout=(spec.agg_backend != "scatter"),
         )
+        return cls.from_book(book, spec, features, labels, train_mask,
+                             sync_mode=sync_mode, mode=mode, mesh=mesh,
+                             seed=seed, lr=lr, codec=codec, device=device)
+
+    @classmethod
+    def from_book(cls, book, spec: GNNSpec, features: np.ndarray,
+                  labels: np.ndarray, train_mask: np.ndarray, *,
+                  sync_mode: str = "halo", mode: str = "sim", mesh=None,
+                  seed: int = 0, lr: float = 1e-2, codec=None,
+                  device: Optional[torch.device] = None
+                  ) -> "FullBatchTrainer":
+        """The trainer over a built `book` (see `build`)."""
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; options: {MODES}")
+        part = None
+        if mode == "dist":
+            if mesh is None or mesh.size != book.k:
+                raise ValueError(
+                    f"mode 'dist' runs one rank a partition: a mesh of "
+                    f"{book.k} ranks, got "
+                    f"{'none' if mesh is None else mesh.size}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"rank {mesh.rank} runs on {mesh.device}, "
+                                 f"not {device}")
+            device, part = mesh.device, mesh.rank
+        elif mesh is not None:
+            raise ValueError("a mesh belongs to mode 'dist'")
+        if device is None:
+            raise ValueError("the sim mode needs a device")
         blocks = build_device_blocks(book, features, labels, train_mask,
-                                     device=device)
+                                     device=device, part=part)
         params = models.init_params(spec, seed=seed, device=device)
         return cls(spec=spec, book=book, blocks=blocks, sync_mode=sync_mode,
                    params=params, opt_state=adam_init(params), lr=lr,
-                   codec=codec)
+                   codec=codec, mode=mode, mesh=mesh)
 
     @functools.cached_property
     def _step_fns(self):
         return make_step_fns(self.spec, self.sync_mode, self.book.k,
-                             codec=self.codec)
+                             codec=self.codec, mesh=self.mesh)
 
     def _init_ef(self):
         """Per-partition zero EF residuals, stacked [k, ...] like the
-        blocks; no leading k at k == 1 (the reference's carry)."""
+        blocks; no leading k at k == 1 (the reference's carry) or on a
+        rank (its own carry)."""
         k = self.book.k
-        if k == 1:
+        if k == 1 or self.mesh is not None:
             return ef_init(self.params)
         return ef_init(tree_map(lambda p: p.expand((k,) + p.shape),
                                 self.params))
@@ -193,19 +258,21 @@ class FullBatchTrainer:
         runs it inside; the smoke times the two against each other)."""
         loss_of, _ = self._step_fns
         codec = as_codec(self.codec)
-        if codec.lossless:
+        if codec.lossless and self.mesh is None:
             loss, self.params, self.opt_state = adam_step(
                 lambda params: loss_of(params, self.blocks), self.params,
                 self.opt_state, lr=self.lr)
             return float(loss)
         k = self.book.k
-        if self.ef_state is None:
+        stacked = k > 1 and self.mesh is None
+        if self.ef_state is None and not codec.lossless:
             self.ef_state = self._init_ef()
         loss, grads = models.per_partition_grads(
             lambda params: loss_of(params, self.blocks), self.params, k=k,
-            stacked=k > 1)
+            stacked=stacked)
         mean, self.ef_state = codec_grad_reduce(codec, grads, self.ef_state,
-                                                stacked=k > 1)
+                                                stacked=stacked,
+                                                mesh=self.mesh)
         self.params, self.opt_state = adam_update(
             mean, self.opt_state, self.params, lr=self.lr)
         return float(loss)
@@ -218,11 +285,20 @@ class FullBatchTrainer:
             self.codec = advance(epoch)
             self.__dict__.pop("_step_fns", None)
 
-    def forward_logits_global(self) -> np.ndarray:
-        """Master-row logits gathered to a global [V, C] array (testing)."""
+    def forward_logits(self) -> torch.Tensor:
+        """The forward pass's logits, [k, n, C] stacked ([1, n, C] on a
+        rank), with no graph."""
         _, forward = self._step_fns
         with torch.no_grad():
-            out = forward(self.params, self.blocks)
+            return forward(self.params, self.blocks)
+
+    def forward_logits_global(self) -> np.ndarray:
+        """Master-row logits gathered to a global [V, C] array (testing);
+        in the dist mode every rank gathers the ranks' blocks first."""
+        out = self.forward_logits()
+        if self.mesh is not None:
+            with torch.no_grad():
+                out = collectives.all_gather(out[0], self.mesh)
         return self.book.scatter_to_global(out.cpu().numpy())
 
     # ------------------------------------------------------------- accounting

@@ -129,8 +129,10 @@ def per_partition_grads(loss_of, params: Params, *, k: int, stacked: bool):
     forward uses copy j), and each copy's gradient is k * dL/dW_j. That is
     the reference's per-lane gradient under `vmap`: every lane's loss is
     the global loss L (a psum), so lane j's gradient is the gradient of the
-    k lanes' summed losses with respect to lane j's copy. Unstacked
-    (k == 1): dL/dW. The loss is returned detached."""
+    k lanes' summed losses with respect to lane j's copy. Unstacked: the
+    gradient of `loss_of` itself, dL/dW at k == 1 and k * dL/dW_j on a
+    rank of the dist mode (the adjoint of the loss's psum). The loss is
+    returned detached."""
     live = {"layers": [
         {name: (t.detach().expand((k,) + t.shape).clone() if stacked
                 else t.detach()).requires_grad_()

@@ -70,6 +70,18 @@ gathers' backward adds in thread order, unless PyTorch's deterministic
 algorithms are on, as they are for every training step
 (`minibatch.repeatable_step`).
 
+The dist mode (gnn/fullbatch.py, mode="dist": one process a partition,
+the reference's shard_map) runs the same strategies on one rank's block,
+built with `part` as a stack of one: `DistDenseSync`, `DistHaloSync` and
+`DistRingSync` keep every tensor op above and turn the sums and exchanges
+over the stacked dimension into collectives over a `launch.mesh.Mesh`
+(core/collectives.py): Dense's sum (max) over the partitions is one
+all-reduce sum (max) of the rank's [V+1, d] buffer; Halo's exchange is one
+all-to-all of its [k, B, d] send buffer (a lossy codec's sender scales
+all-gathered); Ring holds one payload block at a time and shifts it one
+rank down the ring between stages, k-1 shifts an aggregate; the loss's
+psum is an all-reduce. `make_sync` takes the mesh.
+
 Under an installed tracer (obs/trace.py) Dense, Halo and Ring record each
 collective the reference's strategies record (`_record_collective`), at
 the same logical points and with the reference's byte conventions, once
@@ -80,11 +92,12 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import NamedTuple, Optional, Union
+from typing import Any, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.partition_book import BlockRowBook, EdgePartitionBook
 from repro_torch.core.wire import Codec, as_codec
 from repro_torch.kernels import ops
@@ -127,7 +140,8 @@ def _record_collective(sync, kind: str, cluster_bytes: int,
 
 
 class Block(NamedTuple):
-    """The k partitions' static device state, stacked [k, ...].
+    """The k partitions' static device state, stacked [k, ...] (one
+    rank's: its partition alone, a stack of one).
 
     The first fields are the reference's `Block`; the rest are the same
     tables flattened once at build time for the stacked aggregate."""
@@ -167,34 +181,61 @@ class Block(NamedTuple):
     dense_rows: torch.Tensor   # [real] int64 their rows in [k*(V+1)]
 
 
-def _completion_tables(book: EdgePartitionBook, vg: np.ndarray) -> dict:
+def _completion_tables(book: EdgePartitionBook, vg: np.ndarray,
+                       parts: np.ndarray) -> dict:
     """The rows each completion writes and where its values sit, real
-    slots only. The pad slots carry the reduce's identity to a dummy row,
+    slots only, for the partitions `parts` (all k stacked, or one rank's).
+    The pad slots carry the reduce's identity to a dummy row,
     so leaving them out changes no real row, and under PyTorch's
     deterministic algorithms (the training step's) an `index_add_` or an
     index assignment sorts its indices and walks each row's duplicates one
     after another: thousands of pads on one dummy row made the halo and
-    dense steps slower than their atomic versions. Halo's reduce, sender
-    i: receiver j's row `recv_idx[j, i, b]` takes slot j*B + b of what i
-    sent; its broadcast writes mirror row `send_idx[i, j, b]` of partition
-    i from slot (i*k + j)*B + b of the exchanged buffer; Dense places
-    partition p's real row r at p*(V+1) + vglobal[p, r]."""
+    dense steps slower than their atomic versions. Rows and slots count
+    over the selected partitions, p its position in `parts`. Halo's
+    reduce, sender i: receiver p's row `recv_idx[p, i, b]` takes slot
+    p*B + b of what i sent; its broadcast writes mirror row
+    `send_idx[p, j, b]` of partition p from slot (p*k + j)*B + b of the
+    exchanged buffer; Dense places partition p's real row r at
+    p*(V+1) + vglobal[p, r]."""
     k, n = book.k, book.v_max + 1
-    part = np.arange(k, dtype=np.int64)
-    recv_rows = part[:, None, None] * n + book.recv_idx.astype(np.int64)
+    part = np.arange(len(parts), dtype=np.int64)
+    recv_mask = book.recv_mask[parts]
+    send_mask = book.send_mask[parts]
+    recv_rows = part[:, None, None] * n + book.recv_idx[parts].astype(np.int64)
     halo_rows, halo_slots = [], []
     for i in range(k):
-        slots = np.flatnonzero(book.recv_mask[:, i])
+        slots = np.flatnonzero(recv_mask[:, i])
         halo_slots.append(slots)
         halo_rows.append(recv_rows[:, i].reshape(-1)[slots])
-    send_rows = part[:, None, None] * n + book.send_idx.astype(np.int64)
-    bcast_slots = np.flatnonzero(book.send_mask)
-    dense_src = np.flatnonzero(book.vmask)
-    g_rows = part[:, None] * (book.num_vertices + 1) + vg
+    send_rows = part[:, None, None] * n + book.send_idx[parts].astype(np.int64)
+    bcast_slots = np.flatnonzero(send_mask)
+    dense_src = np.flatnonzero(book.vmask[parts])
+    g_rows = part[:, None] * (book.num_vertices + 1) + vg[parts]
     return {"halo_rows": halo_rows, "halo_slots": halo_slots,
             "bcast_rows": send_rows.reshape(-1)[bcast_slots],
             "bcast_slots": bcast_slots, "dense_src": dense_src,
             "dense_rows": g_rows.reshape(-1)[dense_src]}
+
+
+def _selected(book, part: Optional[int]) -> np.ndarray:
+    """The partitions a block holds: all k (the stacked sim), or `part`
+    alone (one rank of the dist mode: the same tables and padding, its
+    own slice)."""
+    if part is None:
+        return np.arange(book.k)
+    if not 0 <= part < book.k:
+        raise ValueError(f"partition {part} of a {book.k}-way book")
+    return np.array([part])
+
+
+def _host_rows(book, features, labels, train_mask, parts):
+    """(x, labels, train mask, vglobal with pads -> V) of `parts`."""
+    x = book.local_features(features.astype(np.float32))[parts]
+    lab = book.local_labels(labels.astype(np.int32))[parts]
+    safe = np.where(book.vglobal[parts] >= 0, book.vglobal[parts], 0)
+    tm = train_mask[safe] & book.vmask[parts]
+    vg = np.where(book.vglobal >= 0, book.vglobal, book.num_vertices)
+    return x, lab, tm, vg
 
 
 def build_blocks(
@@ -204,45 +245,47 @@ def build_blocks(
     train_mask: np.ndarray,
     *,
     device: torch.device,
+    part: Optional[int] = None,
 ) -> Block:
-    """Stacked Block on `device` from a partition book + global node data."""
-    k, n = book.k, book.v_max + 1
-    x = book.local_features(features.astype(np.float32))
-    lab = book.local_labels(labels.astype(np.int32))
-    tm = np.zeros((k, n), dtype=bool)
-    safe = np.where(book.vglobal >= 0, book.vglobal, 0)
-    tm[:] = train_mask[safe]
-    tm &= book.vmask
-    vg = np.where(book.vglobal >= 0, book.vglobal, book.num_vertices)
+    """Block on `device` from a partition book + global node data: the k
+    partitions stacked, or with `part` that partition alone as a stack of
+    one (a rank's block in the dist mode; the halo tables keep their k
+    buckets)."""
+    parts = _selected(book, part)
+    kk, n = len(parts), book.v_max + 1
+    x, lab, tm, vg = _host_rows(book, features, labels, train_mask, parts)
 
     rows_padded, _ = tiled_shape(n)
     e2 = 2 * book.e_max
-    part = np.arange(k, dtype=np.int64)[:, None]
-    src2 = np.concatenate([book.esrc, book.edst], axis=1).astype(np.int64)
-    dst2 = np.concatenate([book.edst, book.esrc], axis=1).astype(np.int64)
-    mask2 = np.concatenate([book.emask, book.emask], axis=1)
-    order = book.agg_order.astype(np.int64)
-    order = np.where(order == e2, k * e2, part * e2 + order)
+    part_ = np.arange(kk, dtype=np.int64)[:, None]
+    esrc, edst, emask = book.esrc[parts], book.edst[parts], book.emask[parts]
+    src2 = np.concatenate([esrc, edst], axis=1).astype(np.int64)
+    dst2 = np.concatenate([edst, esrc], axis=1).astype(np.int64)
+    mask2 = np.concatenate([emask, emask], axis=1)
+    order = book.agg_order[parts].astype(np.int64)
+    order = np.where(order == e2, kk * e2, part_ * e2 + order)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
-    tables = _completion_tables(book, vg)
+    tables = _completion_tables(book, vg, parts)
     return Block(
         x=t(x), labels=t(lab), train_mask=t(tm),
-        esrc=t(book.esrc, torch.int64), edst=t(book.edst, torch.int64),
-        emask=t(book.emask), degree=t(book.degree), master=t(book.master),
-        vmask=t(book.vmask),
-        send_idx=t(book.send_idx, torch.int64), send_mask=t(book.send_mask),
-        recv_idx=t(book.recv_idx, torch.int64), recv_mask=t(book.recv_mask),
-        vglobal=t(vg, torch.int64),
-        sym_src=t((part * n + src2).reshape(-1)),
-        sym_dst=t((part * n + dst2).reshape(-1)),
+        esrc=t(esrc, torch.int64), edst=t(edst, torch.int64),
+        emask=t(emask), degree=t(book.degree[parts]),
+        master=t(book.master[parts]), vmask=t(book.vmask[parts]),
+        send_idx=t(book.send_idx[parts], torch.int64),
+        send_mask=t(book.send_mask[parts]),
+        recv_idx=t(book.recv_idx[parts], torch.int64),
+        recv_mask=t(book.recv_mask[parts]),
+        vglobal=t(vg[parts], torch.int64),
+        sym_src=t((part_ * n + src2).reshape(-1)),
+        sym_dst=t((part_ * n + dst2).reshape(-1)),
         sym_mask=t(mask2.reshape(-1)),
-        agg_dst=t((part * rows_padded + dst2).reshape(-1)),
+        agg_dst=t((part_ * rows_padded + dst2).reshape(-1)),
         agg_order=t(order.reshape(-1)),
-        agg_ldst=t(book.agg_ldst.reshape(-1), torch.int32),
+        agg_ldst=t(book.agg_ldst[parts].reshape(-1), torch.int32),
         rows_padded=rows_padded,
         num_vertices=book.num_vertices,
         halo_rows=tuple(t(r) for r in tables["halo_rows"]),
@@ -262,6 +305,11 @@ class _CodecSync:
 
     def _codec(self) -> Codec:
         return as_codec(self.codec)
+
+    def _cluster(self, nbytes: int) -> int:
+        """The cluster bytes of a stacked buffer: its own (it holds the k
+        partitions' buffers)."""
+        return nbytes
 
     def reset_layer_counter(self) -> None:
         object.__setattr__(self, "_agg_layer", 0)
@@ -365,9 +413,7 @@ class DenseSync(_PartialAggSync):
                        .reshape(k, g_rows, d))
         # wire_bytes=None: the reduce moves the decoded f32 view, so the
         # transport formula (2x encoded) intentionally diverges
-        _record_collective(self, "all-reduce", _nbytes(g),
-                           layer=getattr(self, "_cur_layer", 0))
-        g = g.sum(0)
+        g = self._over_parts(g, "sum")
         return g[blk.vglobal] * blk.vmask[..., None]
 
     def reduce_max(self, h):
@@ -377,10 +423,16 @@ class DenseSync(_PartialAggSync):
         part = torch.where(blk.vmask[..., None], h, -1e30).reshape(k * n, d)
         buf.scatter_reduce_(0, rows[:, None].expand(-1, d), part,
                             reduce="amax", include_self=True)
-        _record_collective(self, "all-reduce", _nbytes(buf),
-                           layer=getattr(self, "_cur_layer", 0))
-        g = buf.reshape(k, g_rows, d).amax(0)
+        g = self._over_parts(buf.reshape(k, g_rows, d), "max")
         return torch.where(blk.vmask[..., None], g[blk.vglobal], h)
+
+    def _over_parts(self, g, reduce: str):
+        """The [V+1, d] sum (or max) of the partitions' [k, V+1, d] slices
+        (the reference's psum / pmax of its buffer): a reduction over the
+        stacked dimension."""
+        _record_collective(self, "all-reduce", _nbytes(g),
+                           layer=getattr(self, "_cur_layer", 0))
+        return g.amax(0) if reduce == "max" else g.sum(0)
 
     def broadcast(self, h):
         # reduce already produced globally-complete values at every replica
@@ -432,10 +484,11 @@ class HaloSync(_PartialAggSync):
     def _per_sender(self, h, recv):
         """(flat [k*n, d] view of h, [(rows, values)] one pair a sender)."""
         k, n, d = h.shape
-        rows = _flat_rows(self.blk.recv_idx, n).reshape(k, k, -1)
+        senders = self.blk.recv_idx.shape[1]
+        rows = _flat_rows(self.blk.recv_idx, n).reshape(k, senders, -1)
         return h.reshape(k * n, d), [
             (rows[:, i].reshape(-1), recv[:, i].reshape(-1, d))
-            for i in range(k)]
+            for i in range(senders)]
 
     def reduce_sum(self, h):
         blk = self.blk
@@ -445,9 +498,10 @@ class HaloSync(_PartialAggSync):
         flat = h.reshape(k * n, d)
         # sender by sender, its real slots only (`_completion_tables`):
         # the pads would add zeros to the dummy rows
-        for i in range(k):
-            flat.index_add_(0, blk.halo_rows[i], recv[:, i].reshape(-1, d)
-                            .index_select(0, blk.halo_slots[i]))
+        for i, (rows, slots) in enumerate(zip(blk.halo_rows,
+                                              blk.halo_slots)):
+            flat.index_add_(0, rows, recv[:, i].reshape(-1, d)
+                            .index_select(0, slots))
         return flat.reshape(h.shape)
 
     def reduce_max(self, h):
@@ -482,7 +536,8 @@ class HaloSync(_PartialAggSync):
 
 
 class RingBlock(NamedTuple):
-    """The k block rows' static device state, stacked [k, ...].
+    """The k block rows' static device state, stacked [k, ...] (one
+    rank's: its block row alone, a stack of one).
 
     The first fields are the reference's `RingBlock` (same row layout as
     `Block`: the dummy row is the last, v_block); the chunk tables are
@@ -519,39 +574,42 @@ def build_ring_blocks(
     train_mask: np.ndarray,
     *,
     device: torch.device,
+    part: Optional[int] = None,
 ) -> RingBlock:
-    """Stacked RingBlock on `device` from a 1.5D book + global node data."""
-    k, n, c = book.k, book.v_block + 1, book.c_max
-    x = book.local_features(features.astype(np.float32))
-    lab = book.local_labels(labels.astype(np.int32))
-    tm = np.zeros((k, n), dtype=bool)
-    safe = np.where(book.vglobal >= 0, book.vglobal, 0)
-    tm[:] = train_mask[safe]
-    tm &= book.vmask
-    vg = np.where(book.vglobal >= 0, book.vglobal, book.num_vertices)
+    """RingBlock on `device` from a 1.5D book + global node data: the k
+    block rows stacked, or with `part` that block row alone as a stack of
+    one (a rank's block in the dist mode, whose chunk sources index the
+    one payload block the rank holds at each stage)."""
+    parts = _selected(book, part)
+    k, kk, n, c = book.k, len(parts), book.v_block + 1, book.c_max
+    x, lab, tm, vg = _host_rows(book, features, labels, train_mask, parts)
 
     rows_padded, _ = tiled_shape(n)
     # [p, s, ...] chunk tables -> stage-major [s, p, ...]
     esrc, edst, emask, order, ldst = (
-        a.transpose(1, 0, 2) for a in (
+        a[parts].transpose(1, 0, 2) for a in (
             book.chunk_esrc.astype(np.int64), book.chunk_edst.astype(np.int64),
             book.chunk_emask, book.chunk_agg_order.astype(np.int64),
             book.chunk_agg_ldst))
     stage = np.arange(k, dtype=np.int64)[:, None, None]
-    part = np.arange(k, dtype=np.int64)[None, :, None]
-    order = np.where(order == c, k * c, part * c + order)
+    part_ = np.arange(kk, dtype=np.int64)[None, :, None]
+    order = np.where(order == c, kk * c, part_ * c + order)
+    # the payload block a stage reads: (p+s) mod k of the stack, or the
+    # rank's own held block
+    held = ((parts[None, :, None] + stage) % k) if part is None else 0
 
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
     return RingBlock(
-        x=t(x), labels=t(lab), train_mask=t(tm), degree=t(book.degree),
-        master=t(book.vmask), vmask=t(book.vmask), vglobal=t(vg, torch.int64),
-        ring_src=t((((part + stage) % k) * n + esrc).reshape(k, -1)),
-        ring_dst=t((part * n + edst).reshape(k, -1)),
+        x=t(x), labels=t(lab), train_mask=t(tm),
+        degree=t(book.degree[parts]), master=t(book.vmask[parts]),
+        vmask=t(book.vmask[parts]), vglobal=t(vg[parts], torch.int64),
+        ring_src=t((held * n + esrc).reshape(k, -1)),
+        ring_dst=t((part_ * n + edst).reshape(k, -1)),
         ring_mask=t(emask.reshape(k, -1)),
-        agg_dst=t((part * rows_padded + edst).reshape(k, -1)),
+        agg_dst=t((part_ * rows_padded + edst).reshape(k, -1)),
         agg_order=t(order.reshape(k, -1)),
         agg_ldst=t(ldst.reshape(k, -1), torch.int32),
         rows_padded=rows_padded,
@@ -581,18 +639,18 @@ class RingSync(_CodecSync):
         layer = self._take_layer()
         codec = self._codec()
         k, n, d = payload.shape
+        stages = blk.ring_src.shape[0]
         enc, meta = codec.encode(payload, layer=layer, stacked=True)
         acc = None
-        for s in range(k):
-            if s < k - 1:
+        for s in range(stages):
+            if s < stages - 1:
                 # the reference's ppermute of the encoded block (and of its
                 # scale) that ships stage s+1's block during stage s
-                _record_collective(self, "collective-permute", _nbytes(enc),
-                                   _nbytes(enc), layer=layer)
-                if meta is not None:
-                    _record_collective(self, "collective-permute",
-                                       _nbytes(meta), _nbytes(meta),
-                                       layer=layer)
+                for x in (enc, meta):
+                    if x is not None:
+                        nb = self._cluster(_nbytes(x))
+                        _record_collective(self, "collective-permute", nb,
+                                           nb, layer=layer)
             flat = codec.decode(enc, meta).reshape(k * n, d)
             messages = msg_fn(flat[blk.ring_src[s]], blk.ring_dst[s],
                               blk.ring_mask[s])
@@ -605,10 +663,94 @@ class RingSync(_CodecSync):
                 acc = part
             else:
                 acc = torch.maximum(acc, part) if reduce == "max" else acc + part
+            if s < stages - 1:
+                enc, meta = self._rotate(enc, meta)
         return acc.contiguous()
+
+    def _rotate(self, enc, meta):
+        """The blocks held at the next stage: the stack holds every block
+        (stage s reads block (p+s) mod k through `ring_src`), so nothing
+        moves."""
+        return enc, meta
 
     def psum(self, v):
         return v.sum(0)
+
+
+# ---------------------------------------------------------------------------
+# The dist mode: one process a partition (the reference's shard_map)
+# ---------------------------------------------------------------------------
+
+
+class _OnRanks:
+    """What the per-rank strategies share. Each rank holds its own
+    partition as a stack of one (`build_blocks` / `build_ring_blocks` with
+    `part`), so every tensor op of the stacked strategy runs as it is; the
+    sums and exchanges over the stacked dimension become collectives over
+    `mesh` (core/collectives.py), the reference's per-device code under
+    `shard_map`. The tracer records what the sim records: cluster bytes
+    are k times this rank's."""
+
+    def _cluster(self, nbytes: int) -> int:
+        return self.mesh.size * nbytes
+
+    def psum(self, v):
+        return collectives.psum(v.sum(0), self.mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistDenseSync(_OnRanks, DenseSync):
+    """DenseSync on one rank: its [V+1, d] buffer summed (or maxed) over
+    the ranks by one all-reduce, the reference's `lax.psum` / `lax.pmax`."""
+
+    mesh: Any = dataclasses.field(kw_only=True)
+
+    def _over_parts(self, g, reduce: str):
+        _record_collective(self, "all-reduce", self._cluster(_nbytes(g)),
+                           layer=getattr(self, "_cur_layer", 0))
+        if reduce == "max":
+            return collectives.pmax(g[0], self.mesh)
+        return collectives.psum(g[0], self.mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistHaloSync(_OnRanks, HaloSync):
+    """HaloSync on one rank: its [k, B, d] send buffer through one
+    all-to-all (the reference's `lax.all_to_all`); a lossy codec's scale
+    is gathered from every sender (`lax.all_gather`), so bucket i decodes
+    with sender i's scale."""
+
+    mesh: Any = dataclasses.field(kw_only=True)
+
+    def _exchange(self, buf: torch.Tensor) -> torch.Tensor:
+        # buf [1, k(bucket), B, d]; result[0, i] = what rank i sent here
+        codec = self._codec()
+        lay = getattr(self, "_cur_layer", 0)
+        payload, meta = codec.encode(buf, layer=lay, stacked=True)
+        pb, mb = _nbytes(payload), _nbytes(meta)
+        _record_collective(self, "all-to-all", self._cluster(pb),
+                           self._cluster(pb + mb), layer=lay)
+        recv = collectives.all_to_all(payload[0], self.mesh)
+        if meta is not None:
+            _record_collective(self, "all-gather",
+                               self.mesh.size * self._cluster(mb), layer=lay)
+            meta = collectives.all_gather(meta[0], self.mesh)
+        return codec.decode(recv, meta)[None]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistRingSync(_OnRanks, RingSync):
+    """RingSync on one rank: it holds one payload block at a time, and
+    between stages the encoded block (and its scale) moves one rank down
+    the ring (the reference's `lax.ppermute` pairs (j, j-1)): k-1 shifts
+    an aggregate, the last rotation left out."""
+
+    mesh: Any = dataclasses.field(kw_only=True)
+
+    def _rotate(self, enc, meta):
+        return (collectives.ring_shift(enc, self.mesh),
+                None if meta is None else collectives.ring_shift(meta,
+                                                                 self.mesh))
 
 
 SYNC_MODES = ("local", "dense", "halo", "ring")
@@ -619,23 +761,30 @@ def _unknown(mode: str) -> ValueError:
                       f"{', '.join(SYNC_MODES)}")
 
 
-def make_sync(mode: str, blk, codec=None):
-    """Instantiate a SyncStrategy over the stacked `blk`: a `Block` for
-    local/dense/halo, a `RingBlock` for ring (1.5D layouts have no halo
-    tables). `codec` is a name or a `core.wire` Codec (None -> fp32)."""
+def make_sync(mode: str, blk, codec=None, mesh=None):
+    """Instantiate a SyncStrategy: a `Block` for local/dense/halo, a
+    `RingBlock` for ring (1.5D layouts have no halo tables). `codec` is a
+    name or a `core.wire` Codec (None -> fp32). Without `mesh`, the
+    strategies over the stacked partitions (the sim mode); with one (a
+    `launch.mesh.Mesh`), the per-rank strategies over this rank's block,
+    whose collectives run over the mesh (the dist mode)."""
     codec = as_codec(codec)
     if mode == "local":
         return LocalSync(codec=codec)
+    dist = {} if mesh is None else {"mesh": mesh}
     if mode == "dense":
-        return DenseSync(blk=blk, codec=codec)
+        return (DenseSync if mesh is None else DistDenseSync)(
+            blk=blk, codec=codec, **dist)
     if mode == "halo":
-        return HaloSync(blk=blk, codec=codec)
+        return (HaloSync if mesh is None else DistHaloSync)(
+            blk=blk, codec=codec, **dist)
     if mode == "ring":
         if not isinstance(blk, RingBlock):
             raise TypeError(
                 "sync mode 'ring' needs a RingBlock (build_ring_blocks over "
                 f"a BlockRowBook); got {type(blk).__name__}")
-        return RingSync(codec=codec)
+        return (RingSync if mesh is None else DistRingSync)(
+            codec=codec, **dist)
     raise _unknown(mode)
 
 
@@ -670,8 +819,9 @@ def collective_budget(book, d: int, mode: str, codec=None,
     """The collectives ONE complete aggregate issues across k processes,
     per kind: {kind: {"count": (lo, hi), "cluster_bytes": int}}, as the
     reference predicts them for its compiled program (repro/gnn/sync.py
-    `collective_budget`). The stacked partitions issue none; the
-    multi-process mode (ROADMAP queue 1, item 4) is what these describe.
+    `collective_budget`). The stacked partitions issue none; the dist
+    mode's ranks issue these (each rank's `Mesh.sent` times k is the
+    cluster bytes, tests/test_torch_dist.py).
 
       halo   2 all_to_alls of each device's [k, B, d] buffer in the codec's
              wire dtype; codecs with a scale gather the k sender scales:

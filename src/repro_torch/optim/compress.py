@@ -15,7 +15,8 @@ hold the k partitions as the leading dimension of every leaf
 (`stacked=True`), and then each partition is quantised with a scale of its
 own (one per lane, as in the reference), never one scale over the stack.
 `compressed_psum` is the reference's `lax.pmean` over the lanes: the mean
-over that dimension.
+over that dimension, or over the ranks of a mesh in the dist mode, where
+each rank holds its own gradient and its own carry.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.collectives import pmean_tree
 from repro_torch.optim.adam import tree_map
 
 Params = Any
@@ -81,12 +83,17 @@ def decompress(qs: Params, scales: Params, dtype=torch.float32) -> Params:
     return tree_map(lambda q, s: dequantise(q, s).to(dtype), qs, scales)
 
 
-def compressed_psum(grads: Params, state: CompressionState):
-    """Data-parallel gradient mean with int8 error-feedback compression over
-    stacked [k, ...] gradients: each partition quantises its own gradient,
-    the mean is taken over the dequantised views (the reference's `pmean`:
-    the sum over the partitions over k), and the residual stays with its
-    partition in the error-feedback state."""
+def compressed_psum(grads: Params, state: CompressionState, mesh=None):
+    """Data-parallel gradient mean with int8 error-feedback compression:
+    each partition quantises its own gradient, the mean is taken over the
+    dequantised views (the reference's `pmean`: the sum over the
+    partitions over k), and the residual stays with its partition in the
+    error-feedback state. Without `mesh` the gradients are stacked
+    [k, ...]; with one (launch/mesh.py), they are this rank's, and the
+    mean runs over the ranks (the reference's `axis`)."""
+    if mesh is not None:
+        qs, scales, new_state = compress(grads, state)
+        return pmean_tree(decompress(qs, scales), mesh), new_state
     qs, scales, new_state = compress(grads, state, stacked=True)
     deq = decompress(qs, scales)
     return tree_map(lambda g: g.sum(0) / g.shape[0], deq), new_state
