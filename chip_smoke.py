@@ -9,9 +9,10 @@ and raises on them all at its end):
 
   1. device  — the card's name and power limit (nvidia-smi) and
                torch.cuda.get_device_name().
-  2. build   — compile the three kernels under kernels/csrc/
-               (segment_reduce.cu, flash_attention.cu, decode_attention.cu)
-               with nvcc for sm_90a, one nvcc each, all started together
+  2. build   — compile the four kernel sources under kernels/csrc/
+               (segment_reduce.cu, flash_attention.cu,
+               flash_attention_bwd.cu, decode_attention.cu) with nvcc for
+               sm_90a, one nvcc each, all started together
                (each ptxas register / shared-memory report is printed; a
                ptxas remark that it serialized the wgmmas, or a spill in
                any decode instantiation, fails the run).
@@ -97,9 +98,11 @@ and raises on them all at its end):
                seconds (median of steps 2-5), peak device memory and
                launches per step; every path (halo, dense, ring; tiled
                and scatter: the step runs under `minibatch.repeatable_step`)
-               repeats its 3-step losses and final parameters bit for bit;
-               per path, one warm step with and without the repeatable
-               step, A B B A on fixed state (`repeatable_cost`); small
+               repeats its first REPEAT_STEPS (2) steps' losses and final
+               parameters bit for bit; one warm step with and without the
+               repeatable step, A B B A on fixed state
+               (`repeatable_cost`), on halo GAT tiled and scatter (the
+               other paths were cut for phase 17's time); small
                runs (halo, dense, ring) on the card against the same runs
                on the CPU;
                the max aggregate's backward on the card (kernel max and tie
@@ -121,9 +124,10 @@ and raises on them all at its end):
                losses, warm step seconds and host phases in both modes,
                overlap efficiency, peak memory and launches per step; then
                which accumulating operations repeat on the card without
-               the repeatable step (`determinism_probe`) and, per path, the
-               device step's time with and without it on three fixed
-               batches (runs with it must repeat bit for bit).
+               the repeatable step (`determinism_probe`) and, for GAT tiled
+               and scatter, the device step's time with and without it on
+               two fixed batches, the second timed (runs with it must
+               repeat bit for bit).
   9. codecs  — the wire codecs (core/wire.py) at phases 7-8's widths, 5
                steps a path, each beside its fp32 twin of phases 4, 7 and
                8: full batch SAGE halo int8 tiled through `gnn_train
@@ -142,7 +146,7 @@ and raises on them all at its end):
                its fp32 twin, bf16 and `variable` within CODEC_TOL_BY,
                int8 on the dense buffer and the ring payload finite only
                (CODEC_UNBOUNDED), tiled == scatter within CODEC_TOL_BY;
-               every tiled lossy full-batch path repeats its 3-step losses,
+               every tiled lossy full-batch path repeats its 2-step losses,
                final parameters and final EF carry bit for bit; mini-batch
                overlapped == serial bit for bit, wire / miss bytes under
                CODEC_WIRE_RATIO every step; codec fp32 == no codec bit for
@@ -191,9 +195,9 @@ and raises on them all at its end):
                timeline loads through `load_trace`, every reconcile check
                is ok with the byte checks exact, and the launches are
                phases 4, 7 and 8's. Then the tracer's cost on the step
-               wall, untraced and traced in the order A B B A on fixed
-               state, full batch (GAT tiled halo) and mini batch (GAT tiled
-               serial). Prints event counts, timeline bytes, the phase
+               wall, untraced and traced on fixed state, full batch (GAT
+               tiled halo, A B B A) and mini batch (GAT tiled serial, A B:
+               cut for phase 17's time). Prints event counts, timeline bytes, the phase
                means and the phase's seconds; the timelines go to
                chiprun_out/trace_*.json.
  12. study   — the paper's study (core/study.py, --out-json, the example
@@ -308,6 +312,33 @@ and raises on them all at its end):
                a step, beside the sim's step seconds. With a card a rank,
                the NCCL leg runs halo GAT the same way; on one card it
                prints that it did not run, and why.
+ 17. lm train — LM training (models/lm.py `loss_fn` under remat, the flash
+               kernels' autograd Function, optim/): (a) the flash backward
+               kernel (csrc/flash_attention_bwd.cu) from the forward
+               kernel's out and lse at FLASH_BWD_SHAPES (the step's bf16
+               [2, 32, 2048, 128] causal, row 3's [1, 32, 4096, 128] causal
+               bf16 and fp32, hymba's [4, 25, 2048, 64] causal, whisper's
+               full [4, 6, 1536, 64] and 448 against 1536): two launches
+               bitwise equal, held to its plain version (FLASH_BWD_TOL)
+               and to a float64 evaluation (FLASH_BWD_F64_RATIO x the
+               plain version's mean error; shown to reject a zeroed dv
+               tile), kernel / plain / SDPA-backward / bound ms; the
+               forward at row 3's shapes with the lse store off and on
+               (A B B A), its lse against the plain version's. (b)
+               qwen3-4b at full width cut to 16 of 36 layers (LM_TRAIN:
+               batch 2, seq 2048, remat), 4 steps of `loss_fn` -> autograd
+               -> `clip_by_global_norm(1.0)` -> `adam_update(lr 3e-4)`,
+               the launch counters and routes set to 0 before and read
+               after: the flash forward 2 x 16 a step (the forward pass
+               and its recompute), the backward 16, the plain route never;
+               finite losses starting near ln V; prints losses, gradient
+               norms, step seconds, the warm step and peak memory. (c) at
+               2 layers one step's gradients on the kernel route (every
+               attention call held to float64, `_checked_attention`)
+               against the plain route's bf16 and fp32 gradients
+               (`_hold_grads`, shown to reject a zeroed gradient). (d) one
+               more step's gradients from the final state, twice, bit for
+               bit.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
@@ -316,14 +347,17 @@ shape phase 5 did not time),
 one per (attention kernel, shape, dtype) of phase 6, one per (kernel,
 shape, dtype) phase 14's full-width run launched, and one per (kernel,
 shape) phase 15's runs launched (`launches_by_run` by arch), one per
-per-rank shape phase 16 timed with the launches its ranks made, then the
+per-rank shape phase 16 timed with the launches its ranks made, one per
+backward shape of phase 17 (launches from its training run) and its
+training forward (lse on), then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
 training results (phase 8's under "minibatch", phase 9's under "codecs",
 phase 10's under "robust", phase 11's under "trace", phase 12's under
 "study", phase 13's under "lint", phase 14's under "lm", phase 15's
-under "lm_families", phase 16's under "dist") to
+under "lm_families", phase 16's under "dist", phase 17's under
+"lm_train") to
 chiprun_out/chip_smoke_train.json.
 `python3 chip_smoke.py --profile` runs only the device and build phases and
 a torch.profiler pass over the GAT main path's layer-wise inference, one
@@ -334,7 +368,7 @@ mini-batch step at phase 8's.
 phases and `phase_aggregate_host`: the host time a call and a served batch
 of `ops.aggregate`'s autograd Function under inference_mode.
 `python3 chip_smoke.py --dist` runs only the device and build phases and
-phase 16.
+phase 16; `--lm-train` only them and phase 17.
 
 It exits non-zero when no GPU is visible and when `src/repro_torch` is not
 beside it. It imports nothing of JAX and nothing of `repro`.
@@ -426,7 +460,7 @@ TRAIN_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "hep100",
                "--layers", "3", "--classes", "16", "--epochs", "5",
                "--lr", TRAIN_LR, "--device", "cuda"]
 TRAIN_STEPS = 5
-REPEAT_STEPS = 3
+REPEAT_STEPS = 2
 LOSS_TOL = 1e-4
 # the mini-batch phase (8): phase 7's graph and widths in the DistDGL
 # regime: vertex partitions by metis (the reference's tests/test_pipeline.py
@@ -438,8 +472,8 @@ MB_WIDTH = ["--graph", "OR", "--scale", "1.0", "--partitioner", "metis",
             "--k", "4", "--features", "512", "--hidden", "512",
             "--layers", "3", "--classes", "16", "--regime", "minibatch",
             "--batch", "1024", "--epochs", "1", "--device", "cuda"]
-MB_STEPS = 5
-MB_COST_STEPS = 3
+MB_STEPS = 4  # cut from 5 for phase 17's time
+MB_COST_STEPS = 2  # cut from 3 for phase 17's time: one warm step
 # the robustness phase (10): the elastic run's smaller cluster (k 4 -> 3 ->
 # 4), the faults of its runs, and where its checkpoints go (git-ignored)
 ELASTIC_K = 3
@@ -460,7 +494,7 @@ ORACLES: dict = {}
 # phase runs over its budget, never below 2), and the card-vs-CPU size
 STUDY_DIR = ROOT / "chiprun_out"
 STUDY_CLI: dict = {}
-STUDY_GRID_STEPS = 3
+STUDY_GRID_STEPS = 2  # cut from 3 for phase 17's time
 STUDY_GRID_METHODS = ("random", "metis")
 # the grid's configuration: phase 8's (MB_WIDTH) for its mini-batch rows,
 # phase 4's (FULL_WIDTH) for its serving rows
@@ -1252,8 +1286,11 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
         raise AssertionError("the loss check passes a shifted trajectory")
     repeats(base, "halo", tiled + rest[::2])
     repeats(base, "dense", tiled)
-    costs(base, "halo", tiled + rest[::2])
-    costs(base, "dense", tiled)
+    # the repeatable step's cost A B B A on halo GAT, tiled and scatter,
+    # only (cut for phase 17's time): dense's and ring's paths and SAGE's
+    # measured the same pattern (tiled 1.000-1.008, scatter 1.26-1.50 on
+    # the H100; PERF.md)
+    costs(base, "halo", tiled[:1] + rest[:1])
     del base
     torch.cuda.empty_cache()
 
@@ -1266,7 +1303,6 @@ def phase_train(torch, spmm, ops, tiling, gnn_train, fullbatch, models,
             hold(("ring", model, backend), ("halo", model, backend),
                  f"ring {model} {backend} vs halo")
     repeats(ring, "ring", tiled + rest[::2])
-    costs(ring, "ring", tiled + rest[::2])
     del ring
     torch.cuda.empty_cache()
 
@@ -1556,7 +1592,11 @@ def phase_minibatch(torch, spmm, ref, tiling, gnn_train, minibatch, models,
     probe = determinism_probe(torch, ref, minibatch, batches[0], base.plan)
     hot = hot_row_probe(torch, ref, minibatch, batches[0], base.plan)
     cost = {}
+    # GAT's two backends only (cut for phase 17's time; SAGE's ratios were
+    # 1.07 tiled, 13.8-19.4 scatter on the H100: PERF.md)
     for (model, backend), spec in specs.items():
+        if model != "gat":
+            continue
         seconds, losses = {True: [], False: []}, {True: [], False: []}
         for on in (True, False, False, True):
             tr = fresh(spec, overlap=False, repeatable=on)
@@ -2204,14 +2244,15 @@ def _same_tensors(torch, got, want, what) -> None:
             f"{what}: final parameters differ from the untraced twin")
 
 
-def trace_overhead(torch, obs, make, step, what) -> dict:
+def trace_overhead(torch, obs, make, step, what,
+                   order=(False, True, True, False)) -> dict:
     """The tracer's cost on the step wall: fresh trainers from `make` (one
     initial state) take a warm step, then a timed one, untraced and traced
-    (a fresh enabled tracer installed for both steps), in the order A B B
-    A. `step(tr)` runs one step and returns (loss, wall seconds). The four
-    timed losses must be one loss."""
+    (a fresh enabled tracer installed for both steps), in `order` (A B B A
+    by default). `step(tr)` runs one step and returns (loss, wall seconds).
+    The timed losses must be one loss."""
     seconds, losses, events = {False: [], True: []}, [], []
-    for traced in (False, True, True, False):
+    for traced in order:
         tr = make()
         with obs.tracing() if traced else contextlib.nullcontext() as tracer:
             step(tr)
@@ -2224,8 +2265,9 @@ def trace_overhead(torch, obs, make, step, what) -> dict:
         del tr
     assert len(set(losses)) == 1, f"{what}: traced != untraced {losses}"
     ratio = float(np.mean(seconds[True]) / np.mean(seconds[False]))
+    pattern = " ".join("B" if t else "A" for t in order)
     say(f"[trace] {what}: warm step untraced {seconds[False]} s, traced "
-        f"{seconds[True]} s (A B B A, fixed state), ratio {ratio:.4f}, "
+        f"{seconds[True]} s ({pattern}, fixed state), ratio {ratio:.4f}, "
         f"{events} events over two traced steps; the losses bit for bit "
         f"equal")
     return {"untraced_seconds": seconds[False],
@@ -2335,8 +2377,10 @@ def phase_trace(torch, spmm, tiling, gnn_train, gnn_serve, gnn_trace, obs,
         sm = tr.train_step()
         return sm.loss, sm.step_wall_host
 
+    # A B only (cut for phase 17's time): a serial mini-batch step is ~3 s
     results["minibatch overhead"] = trace_overhead(
-        torch, obs, mb_fresh, mb_step, "mini batch gat tiled serial")
+        torch, obs, mb_fresh, mb_step, "mini batch gat tiled serial",
+        order=(False, True))
     del mb
     torch.cuda.empty_cache()
 
@@ -4406,6 +4450,476 @@ def phase_dist(torch, spmm, tiling, gnn_train, ep, fullbatch, models,
     return results, launches, shape_rows
 
 
+# --------------------------------------------------------------- phase 17
+# LM training: qwen3-4b at full width (src/repro/configs/qwen3_4b.py),
+# depth cut to 16 of its 36 layers (the reference's out-of-place Adam holds
+# params, grads, fp32 moments and their new copies, ~22 B a parameter: 36
+# layers, 4.41 B parameters, need ~97 GB; 16 layers, 2.39 B, ~53 GB), batch
+# 2, seq 2048, remat, 4 steps of loss -> autograd -> clip_by_global_norm
+# (1.0) -> adam_update (lr 3e-4), the reference's train.py defaults;
+# random weights and tokens from seed 0
+LM_TRAIN_ARCH = "qwen3-4b"
+LM_TRAIN = {"num_layers": 16, "batch": 2, "seq": 2048, "steps": 4}
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_CLIP = 1.0
+# the kernel route against the plain route: the same widths, 2 layers
+LM_TRAIN_CUT_LAYERS = 2
+# one step's gradients at the cut: each leaf's mean error against the
+# plain route's fp32 gradients (the same bf16 weights) at most this many
+# times the plain route's own bf16 error, plus a floor of the fp32
+# gradient's mean magnitude (tests/test_torch_lm_train.py's bf16 rule;
+# the floor keeps a leaf where both bf16 runs land on the fp32 value)
+LM_TRAIN_GRAD_RATIO = 3.0
+LM_TRAIN_GRAD_FLOOR = 2.0 ** -8
+# the backward kernel's shapes (b, h, sq, skv, d, dtype, causal, what),
+# K/V with the arch's KV heads repeated (kv): the step's, PERF.md row 3's
+# (bf16 and fp32), hymba's, whisper's encoder and prefill cross-attention
+FLASH_BWD_SHAPES = [
+    (2, 32, 2048, 2048, 128, "bfloat16", True, 8, "qwen3-4b step"),
+    (1, 32, 4096, 4096, 128, "bfloat16", True, 8, "row 3"),
+    (1, 32, 4096, 4096, 128, "float32", True, 8, "row 3"),
+    (4, 25, 2048, 2048, 64, "bfloat16", True, 5, "hymba"),
+    (4, 6, 1536, 1536, 64, "bfloat16", False, 6, "whisper encoder"),
+    (4, 6, 448, 1536, 64, "bfloat16", False, 6, "whisper cross-attention"),
+]
+# kernel against plain version: the largest |kernel - plain| of dq, dk, dv
+# over the largest |plain|. fp32: both accumulate fp32 products, in other
+# orders (a 64-row tile walk against one matmul). bf16: the plain version
+# rounds the scores and dout V^T to bf16 where the reference does, the
+# kernel keeps them in fp32; the two land up to a few bf16 ulps apart
+FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+# against float64 (the same inputs, autograd of the softmax attention):
+# the kernel's mean error at most this many times the plain version's
+FLASH_BWD_F64_RATIO = 2.0
+# the forward's lse against its plain version's, absolute: the plain
+# version takes the scores from a bf16 product (the reference's), the
+# kernel from fp32 sums; a score of |s| < 8 is off by up to 2^-6 there
+LSE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+LM_TRAIN_DEVICE = "cuda"
+
+
+def _attention_f64_grads(torch, q, k, v, dout, causal, chunk=8):
+    """dq, dk, dv of softmax attention in float64 (autograd; the causal
+    mask from the top left, Sq == Skv), `chunk` heads at a time."""
+    grads = [[], [], []]
+    for lo in range(0, q.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        q64, k64, v64 = (x[sl].double().requires_grad_() for x in (q, k, v))
+        s = torch.einsum("bqd,bkd->bqk", q64, k64) / math.sqrt(q.shape[-1])
+        if causal:
+            sq, sk = q.shape[1], k.shape[1]
+            keep = (torch.arange(sq, device=q.device)[:, None]
+                    >= torch.arange(sk, device=q.device)[None, :])
+            s = torch.where(keep, s, -1e30)
+        out = torch.einsum("bqk,bkd->bqd", torch.softmax(s, dim=-1), v64)
+        for acc, g in zip(grads, torch.autograd.grad(
+                out, (q64, k64, v64), dout[sl].double())):
+            acc.append(g)
+        del q64, k64, v64, s, out
+    return [torch.cat(g) for g in grads]
+
+
+def _bwd_errors(torch, got, plain, truth) -> dict:
+    """Per gradient: the largest |kernel - plain| over the largest |plain|
+    and both mean errors against the float64 truth."""
+    out = {}
+    for name, g, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+        out[name] = {
+            "rel_vs_plain": float((g.float() - p.float()).abs().max()
+                                  / p.float().abs().max().clamp_min(1e-30)),
+            "max_abs_err": _max_abs_err(torch, g, p),
+            "f64_err": float((g.double() - t).abs().mean()),
+            "plain_f64_err": float((p.double() - t).abs().mean())}
+    return out
+
+
+def _hold_bwd(name, errs, dtype) -> None:
+    """The backward kernel against its plain version (FLASH_BWD_TOL) and
+    against float64 (FLASH_BWD_F64_RATIO x the plain version's error)."""
+    for grad, e in errs.items():
+        assert e["rel_vs_plain"] <= FLASH_BWD_TOL[dtype], (
+            f"{name} {grad}: |kernel - plain| {e['rel_vs_plain']:.3g} of the "
+            f"largest value > {FLASH_BWD_TOL[dtype]}")
+        assert e["f64_err"] <= FLASH_BWD_F64_RATIO * e["plain_f64_err"], (
+            f"{name} {grad}: mean error against float64 {e['f64_err']:.3g} "
+            f"> {FLASH_BWD_F64_RATIO} x the plain version's "
+            f"{e['plain_f64_err']:.3g}")
+
+
+def _bwd_bound(dtype, bh, sq, skv, d, causal) -> tuple[float, str]:
+    """(bound ms, bound by) of the backward: its five products of 2 Sq Skv
+    D operations a head (halved for causal: the unmasked pairs) over the
+    peak for its type, against the bytes it must move (q, k, v, out, dout
+    and lse read once, dq, dk, dv written once) over 3.35 TB/s."""
+    b = 2 if dtype == "bfloat16" else 4
+    peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_FP32_FLOPS
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    ops = 5 * 2 * bh * d * pairs
+    nbytes = (4 * bh * sq * d + 4 * bh * skv * d) * b + 4 * bh * sq
+    t_ops = ops / peak * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _sdpa_bwd_ms(torch, q, k, v, dout, causal) -> float:
+    """The library yardstick: SDPA's backward under autograd (its default
+    dispatch) on the unfolded inputs, the graph built once and replayed."""
+    F = torch.nn.functional
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dout, retain_graph=True), 5)
+    del qs, ks, vs, out
+    return ms
+
+
+def flash_bwd_checks(torch, flash) -> tuple[list, dict]:
+    """(a): the backward kernel at each FLASH_BWD_SHAPES shape from the
+    forward kernel's out and lse: two launches bitwise equal, held against
+    its plain version and float64 (`_hold_bwd`; shown to reject a zeroed
+    dv tile at the step's shape), with kernel / plain / SDPA-backward /
+    bound ms; and the forward at PERF.md row 3's shapes with the lse store
+    off and on. Returns ({key: row}, forward times)."""
+    rows = {}
+    for b, h, sq, skv, d, dtype, causal, kvh, what in FLASH_BWD_SHAPES:
+        tdt = getattr(torch, dtype)
+        q, k, v = _attn_inputs(torch, (b, h, sq, d), (b, h, skv, d), tdt,
+                               sq + skv + d, kv_heads=kvh)
+        gen = torch.Generator(device=LM_TRAIN_DEVICE).manual_seed(sq + 1)
+        dout4 = torch.randn((b, h, sq, d), device=LM_TRAIN_DEVICE,
+                            generator=gen).to(tdt)
+        bh = b * h
+        fold = lambda x: x.reshape(bh, x.shape[2], d)  # noqa: E731
+        qf, kf, vf, dof = fold(q), fold(k), fold(v), fold(dout4)
+        out, lse = flash.flash_attention(qf, kf, vf, causal=causal,
+                                         return_lse=True)
+        got = flash.flash_attention_bwd(qf, kf, vf, out, lse, dof,
+                                        causal=causal)
+        again = flash.flash_attention_bwd(qf, kf, vf, out, lse, dof,
+                                          causal=causal)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), (
+            f"flash bwd {what}: two launches differ")
+        plain = flash.flash_attention_bwd_plain(qf, kf, vf, out, lse, dof,
+                                                causal=causal)
+        truth = _attention_f64_grads(torch, qf, kf, vf, dof, causal)
+        key = (bh, sq, skv, d, dtype, causal)
+        name = f"flash bwd {what} {key}"
+        errs = _bwd_errors(torch, got, plain, truth)
+        _hold_bwd(name, errs, dtype)
+        if what == "qwen3-4b step":
+            wrong = list(got)
+            wrong[2] = got[2].clone()
+            wrong[2][:, :64] = 0  # one key tile's dv lost
+            try:
+                _hold_bwd(name, _bwd_errors(torch, wrong, plain, truth),
+                          dtype)
+            except AssertionError:
+                say(f"[lm train] the check rejects a zeroed dv key tile "
+                    f"at {key}")
+            else:
+                raise AssertionError("the backward check passes a zeroed "
+                                     "dv tile")
+            del wrong
+        del truth, again
+        ms = _time_ms(torch, lambda: flash.flash_attention_bwd(
+            qf, kf, vf, out, lse, dof, causal=causal), 5)
+        plain_ms = _time_ms(torch, lambda: flash.flash_attention_bwd_plain(
+            qf, kf, vf, out, lse, dof, causal=causal), 2)
+        library_ms = _sdpa_bwd_ms(torch, q, k, v, dout4, causal)
+        bound_ms, bound_by = _bwd_bound(dtype, bh, sq, skv, d, causal)
+        rows[key] = {
+            "what": what, "errors": errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+        say(f"[lm train] {name}: |kernel - plain| / largest "
+            + ", ".join(f"{g} {e['rel_vs_plain']:.3g}"
+                        for g, e in errs.items())
+            + "; mean err vs float64 kernel / plain "
+            + ", ".join(f"{g} {e['f64_err']:.3g} / {e['plain_f64_err']:.3g}"
+                        for g, e in errs.items())
+            + f"; repeats bit for bit; ms {ms:.4f} plain {plain_ms:.4f} "
+            f"sdpa bwd {library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+        del q, k, v, dout4, qf, kf, vf, dof, out, lse, got, plain
+        torch.cuda.empty_cache()
+
+    # PERF.md row 3's forward, with the lse store off and on, A B B A
+    fwd = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = _attn_inputs(torch, (32, 4096, 128), (32, 4096, 128),
+                               getattr(torch, dtype), 4096 * 2 + 128)
+        times = {False: [], True: []}
+        for lse_on in (False, True, True, False):
+            times[lse_on].append(_time_ms(torch, lambda: flash.flash_attention(
+                q, k, v, causal=True, return_lse=lse_on), 10))
+        out, lse = flash.flash_attention(q, k, v, causal=True,
+                                         return_lse=True)
+        assert torch.equal(out, flash.flash_attention(q, k, v, causal=True))
+        _, plain_lse = flash.flash_attention_plain(q, k, v, causal=True,
+                                                   return_lse=True)
+        lse_err = float((lse - plain_lse).abs().max())
+        assert lse_err <= LSE_TOL[dtype], f"row 3 {dtype}: lse {lse_err}"
+        fwd[dtype] = {"ms_without_lse": times[False],
+                      "ms_with_lse": times[True], "lse_max_abs_err": lse_err}
+        say(f"[lm train] flash forward [1, 32, 4096, 128] causal {dtype}: "
+            f"ms without lse {times[False]}, with lse {times[True]} (A B B "
+            f"A); the output equal bit for bit; lse against the plain "
+            f"version {lse_err:.3g}")
+        del q, k, v, out, lse, plain_lse
+        torch.cuda.empty_cache()
+    return rows, fwd
+
+
+def _lm_grads(torch, optim, lm, cfg, params, batch, remat=True,
+              use_pallas=None):
+    """(loss, gradients as a tree like `params`) of `lm.loss_fn`; weights
+    that take no part get zeros, as `jax.grad` gives them."""
+    live = optim.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = lm.loss_fn(cfg, live, batch, remat=remat, use_pallas=use_pallas)
+    grads = iter(torch.autograd.grad(loss, optim.leaves(live),
+                                     materialize_grads=True))
+    return loss.detach(), optim.tree_map(lambda _: next(grads), params)
+
+
+def lm_train_step(torch, optim, lm, cfg, params, state, batch):
+    """One step: loss -> autograd -> clip_by_global_norm -> adam_update.
+    Returns (loss, grad norm, new params, new state)."""
+    loss, grads = _lm_grads(torch, optim, lm, cfg, params, batch)
+    clipped, norm = optim.clip_by_global_norm(grads, LM_TRAIN_CLIP)
+    del grads
+    params, state = optim.adam_update(clipped, state, params,
+                                      lr=LM_TRAIN_LR)
+    return loss, norm, params, state
+
+
+def lm_train_run(torch, flash, optim, lm, layers, cfg) -> dict:
+    """(b) and (d): LM_TRAIN's steps at full width, the launches counted
+    over them alone; then one more gradient twice from the final state,
+    bit for bit."""
+    b, s, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    dev = LM_TRAIN_DEVICE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    state = optim.adam_init(params)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)
+    batch = {"tokens": tokens}
+    flash.LAUNCHES.clear()
+    flash.BWD_LAUNCHES.clear()
+    layers.ROUTES.clear()
+    losses, norms, walls = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, norm, params, state = lm_train_step(torch, optim, lm, cfg,
+                                                  params, state, batch)
+        losses.append(float(loss))  # read back: the step has ended
+        norms.append(float(norm))
+        walls.append(time.perf_counter() - t0)
+    launches = {"flash": dict(flash.LAUNCHES),
+                "flash_bwd": dict(flash.BWD_LAUNCHES)}
+    routes = dict(layers.ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.num_layers
+    key = (b * cfg.num_heads, s, s, cfg.resolved_head_dim, "bfloat16", True)
+    # under remat each layer's forward runs twice a step: the forward pass
+    # and its recompute in the backward; the backward once
+    assert launches == {"flash": {key: 2 * n * steps},
+                        "flash_bwd": {key: n * steps}}, launches
+    assert routes == {"flash": 2 * n * steps}, f"routes {routes}"
+    assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+    ln_v = math.log(cfg.vocab_size)
+    assert abs(losses[0] - ln_v) < 2.0, (losses[0], ln_v)
+
+    # (d) one more gradient, twice, from the final state
+    g1 = _lm_grads(torch, optim, lm, cfg, params, batch)
+    g2 = _lm_grads(torch, optim, lm, cfg, params, batch)
+    same = torch.equal(g1[0], g2[0]) and all(
+        torch.equal(x, y) for x, y in zip(optim.leaves(g1[1]),
+                                          optim.leaves(g2[1])))
+    assert same, "lm train: one step's gradients differ between two runs"
+    del g1, g2, params, state
+    torch.cuda.empty_cache()
+    warm = float(np.median(walls[1:]))
+    out = {"losses": losses, "grad_norms": norms, "step_seconds": walls,
+           "warm_step_seconds": warm, "peak_bytes": peak,
+           "launches": {k: {str(kk): v for kk, v in t.items()}
+                        for k, t in launches.items()},
+           "routes": routes, "repeat_bitwise": same, "ln_vocab": ln_v,
+           "params": cfg.param_count()}
+    say(f"[lm train] {LM_TRAIN_ARCH} full width, {n} of 36 layers "
+        f"({cfg.param_count():,} parameters, bf16), batch {b}, seq {s}, "
+        f"remat: losses {losses} (ln V {ln_v:.4f}), grad norms {norms}; "
+        f"step seconds {walls}, warm (median of steps 2-{steps}) "
+        f"{warm:.4f}s; peak {peak / 2**30:.2f} GiB; launches flash "
+        f"{launches['flash']}, flash bwd {launches['flash_bwd']} (2 x {n} "
+        f"forwards and {n} backwards a step); routes {routes}; a step's "
+        "gradients repeat bit for bit")
+    return out
+
+
+def _grad_mean_errors(torch, optim, got, plain16, truth) -> dict:
+    """Per leaf (by position): (mean |got - truth|, mean |plain16 -
+    truth|, mean |truth|)."""
+    out = {}
+    for i, (g, p, t) in enumerate(zip(optim.leaves(got),
+                                      optim.leaves(plain16),
+                                      optim.leaves(truth))):
+        t = t.float()
+        out[i] = (float((g.float() - t).abs().mean()),
+                  float((p.float() - t).abs().mean()),
+                  float(t.abs().mean()))
+    return out
+
+
+def _hold_grads(errs, what) -> float:
+    """Every leaf: its mean error at most LM_TRAIN_GRAD_RATIO x the plain
+    route's bf16 error plus LM_TRAIN_GRAD_FLOOR of the truth's mean
+    magnitude. Returns the worst ratio of error to bound."""
+    worst = 0.0
+    for i, (err, own, scale) in errs.items():
+        bound = LM_TRAIN_GRAD_RATIO * own + LM_TRAIN_GRAD_FLOOR * scale
+        assert err <= bound, (f"{what}: leaf {i} mean error {err:.3g} > "
+                              f"{bound:.3g}")
+        worst = max(worst, err / bound if bound else 0.0)
+    return worst
+
+
+def lm_train_cut(torch, optim, lm, layers, cfg, fails) -> dict:
+    """(c): at LM_TRAIN_CUT_LAYERS layers, one step's gradients on the
+    kernel route (every attention call held to float64 as phase 15 holds
+    it, `_checked_attention`) against the plain route's, bf16 and the same
+    weights in fp32 (`_hold_grads`; shown to reject a zeroed gradient)."""
+    c16 = dataclasses.replace(cfg, num_layers=LM_TRAIN_CUT_LAYERS)
+    c32 = dataclasses.replace(c16, dtype="float32")
+    dev = LM_TRAIN_DEVICE
+    params = lm.init_params(c16, torch.Generator(device=dev).manual_seed(1),
+                            dev)
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)
+    batch = {"tokens": tokens}
+    calls = []
+    layers.ROUTES.clear()
+    with _checked_attention(torch, layers, calls):
+        loss_k, kern = _lm_grads(torch, optim, lm, c16, params, batch)
+    routes = dict(layers.ROUTES)
+    assert routes == {"flash": 2 * LM_TRAIN_CUT_LAYERS}, routes
+    worst_calls = _hold_calls("bfloat16", calls, "lm train cut", fails)
+    loss_p, plain16 = _lm_grads(torch, optim, lm, c16, params, batch,
+                                use_pallas=False)
+    loss_t, truth = _lm_grads(torch, optim, lm, c32,
+                              _to_dtype(torch, params, torch.float32),
+                              batch, use_pallas=False)
+    errs = _grad_mean_errors(torch, optim, kern, plain16, truth)
+    worst = _hold_grads(errs, "lm train cut")
+    wrong = optim.tree_map(lambda t: t, kern)
+    wrong["blocks"]["wq"] = torch.zeros_like(kern["blocks"]["wq"])
+    try:
+        _hold_grads(_grad_mean_errors(torch, optim, wrong, plain16, truth),
+                    "zeroed wq")
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("the gradient check passes a zeroed wq "
+                             "gradient")
+    out = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_fp32": float(loss_t), "worst_grad_ratio": worst,
+           "worst_call_ratio": worst_calls, "calls": len(calls)}
+    say(f"[lm train] cut ({LM_TRAIN_CUT_LAYERS} layers, batch {b}, seq {s}):"
+        f" losses kernel {out['loss_kernel']:.6f} plain "
+        f"{out['loss_plain']:.6f} fp32 {out['loss_fp32']:.6f}; {len(calls)}"
+        f" attention calls against float64 (worst ratio to bound "
+        f"{worst_calls}); gradients' mean error at most "
+        f"{worst:.3f} of the bound (a zeroed wq gradient rejected)")
+    del params, kern, plain16, truth, wrong
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_entry(key, row, launches) -> dict:
+    bh, sq, skv, d, dtype, causal = key
+    span = f"S={sq}" if causal and sq == skv else f"Sq={sq},Skv={skv}"
+    name = (f"flash_attention_bwd[{dtype},BH={bh},{span},D={d},"
+            f"{'causal' if causal else 'full'}]")
+    return _attn_entry(name, "flash_attention_bwd.cu",
+                       "src/repro/models/layers.py:218", launches,
+                       row["max_abs_err"], row["ms"], row["plain_ms"],
+                       row["bound_ms"], row["bound_by"], row["library_ms"])
+
+
+def lm_train_fwd_entry(torch, flash, key, launches) -> dict:
+    """The kernels line's entry of the forward at the step's shape with
+    the lse store on (the training path's forward)."""
+    bh, sq, skv, d, dtype, causal = key
+    q, k, v = _attn_inputs(torch, (bh, sq, d), (bh, skv, d),
+                           getattr(torch, dtype), sq + d + 7)
+    out, lse = flash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    plain, plain_lse = flash.flash_attention_plain(q, k, v, causal=causal,
+                                                   return_lse=True)
+    _hold_attn(torch, f"flash lse {key}", out, plain, dtype, skv)
+    assert float((lse - plain_lse).abs().max()) <= LSE_TOL[dtype], key
+    ms = _time_ms(torch, lambda: flash.flash_attention(
+        q, k, v, causal=causal, return_lse=True), 10)
+    plain_ms = _time_ms(torch, lambda: flash.flash_attention_plain(
+        q, k, v, causal=causal, return_lse=True), 3)
+    F = torch.nn.functional
+    library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=causal), 10)
+    bound_ms, bound_by = _attn_bound(dtype, bh, sq, skv, d, causal=causal)
+    entry = _attn_entry(
+        f"flash_attention[{dtype},BH={bh},S={sq},D={d},causal,lse]",
+        "flash_attention.cu", "src/repro/kernels/flash_attention.py:32",
+        launches, _max_abs_err(torch, out, plain), ms, plain_ms, bound_ms,
+        bound_by, library_ms)
+    say(f"[lm train] {entry['name']}: launches {launches}, err "
+        f"{entry['max_abs_err']:.3g}, ms {ms:.4f} plain {plain_ms:.4f} sdpa "
+        f"{library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+    del q, k, v, out, lse, plain, plain_lse
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_lm_train(torch, flash, smi) -> tuple[list, dict]:
+    """Phase 17: LM training on the card. (a) the backward kernel at
+    FLASH_BWD_SHAPES and the forward's lse store (`flash_bwd_checks`);
+    (b) LM_TRAIN's steps of qwen3-4b at full width through `lm.loss_fn`,
+    autograd, `optim.clip_by_global_norm` and `optim.adam_update`, the
+    launches and routes counted; (c) the kernel route's gradients against
+    the plain route's at the cut; (d) a step's gradients repeat bit for
+    bit. Returns (the kernels line's entries, results)."""
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers, lm
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN["num_layers"])
+    rows, fwd = flash_bwd_checks(torch, flash)
+    t_kernels = time.perf_counter() - t_phase
+    results = {"arch": LM_TRAIN_ARCH, **LM_TRAIN, "lr": LM_TRAIN_LR,
+               "clip": LM_TRAIN_CLIP, "card": smi,
+               "flash_bwd": {str(k): r for k, r in rows.items()},
+               "flash_fwd_lse": fwd}
+    results["run"] = run = lm_train_run(torch, flash, optim, lm, layers, cfg)
+    fails = []
+    results["cut"] = lm_train_cut(torch, optim, lm, layers, cfg, fails)
+    assert not fails, "phase 17: " + "; ".join(fails)
+    key = (LM_TRAIN["batch"] * cfg.num_heads, LM_TRAIN["seq"],
+           LM_TRAIN["seq"], cfg.resolved_head_dim, "bfloat16", True)
+    entries = [_bwd_entry(k, r, run["launches"]["flash_bwd"].get(str(k), 0))
+               for k, r in rows.items()]
+    entries.append(lm_train_fwd_entry(
+        torch, flash, key, run["launches"]["flash"][str(key)]))
+    results["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"[lm train] phase 17 {results['phase_seconds']:.1f}s (kernel "
+        f"checks {t_kernels:.1f}s)")
+    return entries, results
+
+
 # --------------------------------------------------------------- profile
 def _profiled(torch, fn, what: str) -> None:
     """Run `fn` once under torch.profiler; print device time by op and the
@@ -4601,7 +5115,8 @@ def main() -> int:
     resolve_device("cuda")
     t_start = time.perf_counter()
     smi, kind = phase_device(torch)
-    phase_build([spmm.LIBRARY, flash.LIBRARY, decode.LIBRARY])
+    phase_build([spmm.LIBRARY, flash.LIBRARY, flash.BWD_LIBRARY,
+                 decode.LIBRARY])
     say(f"[time] device + build {time.perf_counter() - t_start:.1f}s")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, gnn_serve, gnn_train)
@@ -4612,6 +5127,9 @@ def main() -> int:
     if "--dist" in sys.argv[1:]:
         phase_dist(torch, spmm, tiling, gnn_train, ep, fullbatch, models,
                    sync_mod, ranks, dist_jobs)
+        return 0
+    if "--lm-train" in sys.argv[1:]:
+        phase_lm_train(torch, flash, smi)
         return 0
     rows_out = phase_kernels(torch, spmm, tiling, graph_mod, ep, book_mod)
     say(f"[time] kernels {time.perf_counter() - t_start:.1f}s")
@@ -4667,6 +5185,8 @@ def main() -> int:
         torch, spmm, tiling, gnn_train, ep, fullbatch, models, sync_mod,
         ranks, dist_jobs)
     say(f"[time] dist {time.perf_counter() - t_start:.1f}s")
+    train_entries, train["lm_train"] = phase_lm_train(torch, flash, smi)
+    say(f"[time] lm train {time.perf_counter() - t_start:.1f}s")
     shapes.update(dist_rows)
     for run, n in {**train_launches, **mb_launches, **codec_launches,
                    **robust_launches, **trace_launches,
@@ -4705,7 +5225,7 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    kernels += attn_entries + lm_entries + family_entries
+    kernels += attn_entries + lm_entries + family_entries + train_entries
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_kernels.json").write_text(

@@ -11,6 +11,11 @@
 // of the last tile is masked (keys past Skv get probability 0, rows past Sq
 // are not stored), where the TPU kernel asserts divisibility. The wrapper
 // only passes causal calls with Sq == Skv (kernels/flash_attention.py).
+// With a non-null `lse` the kernel also stores each row's fp32 log-sum-exp
+// of its scaled scores, m + log(max(l, 1e-30)) (the reference's `lse_blk`,
+// src/repro/models/layers.py:_flash_fwd_inner), which the backward kernel
+// (csrc/flash_attention_bwd.cu) reads to recompute the probabilities; a
+// null pointer skips the store.
 //
 // Common design. One block per (128-row q tile, bh); the q tiles run
 // longest first, so the blocks that walk the most key tiles start first on
@@ -74,6 +79,7 @@
 namespace {
 
 constexpr float kMasked = -1e30f;  // the TPU kernel's masked score
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------------------------------ fp32
@@ -125,8 +131,9 @@ __device__ __forceinline__ void stage_rows(float (*dst)[kStride],
 template <int D>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int sq,
-                 int skv, float scale, int causal) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int sq, int skv, float scale,
+                 int causal) {
   constexpr int kPad = F32Tiles<D>::kPad;
   constexpr int kGroups = D / 64;  // float4 column groups of a PV thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -271,6 +278,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + rg * 8 + i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);  // a divide, as the TPU kernel
+    // m is in log2 units; every lane of the half warp holds the row's m, l
+    if (lse != nullptr && h == 0) lse[bh * sq + row] = m[i] * kLn2 + logf(den);
     float* orow = out + (bh * sq + row) * D;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
@@ -560,8 +569,8 @@ __global__ void __launch_bounds__(kBfThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
-                  __nv_bfloat16* __restrict__ out, int sq, int skv,
-                  float scale, int causal) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int sq, int skv, float scale, int causal) {
   using L = BfLayout<D>;
   constexpr int kChunkQ = kBfBlockQ * 128;  // bytes of a 64-column box
   constexpr int kChunkK = kBfBlockK * 128;
@@ -695,6 +704,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  // m is in log2 units; the 4 lanes of a quad hold the same rows' m, l
+  if (lse != nullptr && t == 0) {
+    float* lb = lse + (int64_t)bh * sq;
+    if (r0 < sq) lb[r0] = m[0] * kLn2 + logf(d0);
+    if (r0 + 8 < sq) lb[r0 + 8] = m[1] * kLn2 + logf(d1);
+  }
   __nv_bfloat16* ob = out + (int64_t)bh * sq * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -710,8 +725,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       long long bh, int sq, int skv, float scale, int causal,
-                       cudaStream_t stream) {
+                       void* lse, long long bh, int sq, int skv, float scale,
+                       int causal, cudaStream_t stream) {
   const dim3 grid((unsigned)bh, (unsigned)((sq + kF32BlockQ - 1) / kF32BlockQ));
   const int smem = (int)sizeof(F32Tiles<D>);
   auto kernel = flash_f32_kernel<D>;
@@ -720,8 +735,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, scale,
-      causal);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), sq, skv, scale, causal);
   return cudaGetLastError();
 }
 
@@ -767,8 +782,8 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long bh, int s,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
-                        long long bh, int sq, int skv, float scale, int causal,
-                        cudaStream_t stream) {
+                        void* lse, long long bh, int sq, int skv, float scale,
+                        int causal, cudaStream_t stream) {
   static_assert(kBfBlockQ == 128 && kBfBlockK == 128, "one box shape");
   CUtensorMap qmap, kmap, vmap;
   cudaError_t err = tensor_map(&qmap, q, bh, sq, D);
@@ -782,8 +797,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kBfThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), sq, skv, scale,
-      causal);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), sq, skv, scale, causal);
   return cudaGetLastError();
 }
 
@@ -792,9 +807,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, out [bh, sq, d]; k, v [bh, skv, d],
-// contiguous, 16-byte aligned; d in {64, 128}. Returns a cudaError_t.
+// contiguous, 16-byte aligned; d in {64, 128}; lse [bh, sq] float32 or
+// null (no store). Returns a cudaError_t.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    long long bh, long long sq, long long skv, int d,
+                    void* lse, long long bh, long long sq, long long skv, int d,
                     int dtype, int causal, float scale, void* stream) {
   const int block_q = dtype == 0 ? kF32BlockQ : kBfBlockQ;
   if (bh <= 0 || sq <= 0 || skv <= 0 || bh > 0x7fffffffLL ||
@@ -804,13 +820,17 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int isq = (int)sq, iskv = (int)skv;
   if (dtype == 0 && d == 64)
-    return (int)launch_f32<64>(q, k, v, out, bh, isq, iskv, scale, causal, s);
+    return (int)launch_f32<64>(q, k, v, out, lse, bh, isq, iskv, scale,
+                               causal, s);
   if (dtype == 0 && d == 128)
-    return (int)launch_f32<128>(q, k, v, out, bh, isq, iskv, scale, causal, s);
+    return (int)launch_f32<128>(q, k, v, out, lse, bh, isq, iskv, scale,
+                                causal, s);
   if (dtype == 1 && d == 64)
-    return (int)launch_bf16<64>(q, k, v, out, bh, isq, iskv, scale, causal, s);
+    return (int)launch_bf16<64>(q, k, v, out, lse, bh, isq, iskv, scale,
+                                causal, s);
   if (dtype == 1 && d == 128)
-    return (int)launch_bf16<128>(q, k, v, out, bh, isq, iskv, scale, causal, s);
+    return (int)launch_bf16<128>(q, k, v, out, lse, bh, isq, iskv, scale,
+                                 causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,12 @@ and counted by the same segment sum. Neither saves the `[E_tiled, F]`
 gathered layout. With no graph to record (serving, under
 `inference_mode`) `aggregate` runs the same forward without them. The
 kernel wrapper itself stays forward only.
+
+`flash_attention` is differentiable too: when a gradient is wanted it goes
+through `_FlashAttention`, the twin of the reference's custom VJP
+(`_flash_core` in repro/models/layers.py), which keeps only q, k, v, out
+and the rows' log-sum-exp and runs the backward kernel (CUDA) or its
+plain version (CPU). Without one it calls the forward alone.
 """
 
 from __future__ import annotations
@@ -266,6 +272,30 @@ def _use_kernel(x: torch.Tensor, use_pallas: bool | None) -> bool:
     return bool(use_pallas)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention on folded [BH, S, D] tensors with the reference's
+    backward: the forward saves q, k, v, out and the fp32 log-sum-exp
+    [BH, Sq]; the backward recomputes the probabilities from them
+    (`flash_attention_bwd`: the kernels on CUDA with `kernel`, else the
+    plain versions) and returns dq, dk, dv in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kernel: bool):
+        fn = (_flash.flash_attention if kernel
+              else _flash.flash_attention_plain)
+        out, lse = fn(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.kernel = causal, kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        fn = (_flash.flash_attention_bwd if ctx.kernel
+              else _flash.flash_attention_bwd_plain)
+        dq, dk, dv = fn(*ctx.saved_tensors, dout, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, H, Sq, D]
     k: torch.Tensor,  # [B, H, Skv, D]
@@ -274,13 +304,21 @@ def flash_attention(
     causal: bool = True,
     use_pallas: bool | None = None,
 ) -> torch.Tensor:
-    """Forward attention, [B, H, Sq, D] in q's dtype. A causal call needs
-    Sq == Skv (raises ValueError otherwise, on both paths)."""
+    """Attention, [B, H, Sq, D] in q's dtype. A causal call needs Sq ==
+    Skv (raises ValueError otherwise, on both paths). Differentiable: with
+    a gradient wanted the call goes through `_FlashAttention`, whose
+    backward takes the same route as the forward (the kernel or the plain
+    version)."""
     b, h, sq, d = q.shape
-    fn = (_flash.flash_attention if _use_kernel(q, use_pallas)
-          else _flash.flash_attention_plain)
+    kernel = _use_kernel(q, use_pallas)
     fold = lambda x: x.reshape(b * h, x.shape[2], d)  # noqa: E731
-    return fn(fold(q), fold(k), fold(v), causal=causal).reshape(b, h, sq, d)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal, kernel)
+    else:
+        fn = (_flash.flash_attention if kernel
+              else _flash.flash_attention_plain)
+        out = fn(fold(q), fold(k), fold(v), causal=causal)
+    return out.reshape(b, h, sq, d)
 
 
 def decode_attention(

@@ -19,9 +19,16 @@ returns its new cache. Attention goes through `layers.attention`, which on
 the card launches the flash kernel for each prefill layer, whisper's
 encoder and its prefill cross-attention, and the decode kernel for each
 decode layer and whisper's cross-attention at a decode step. There is one
-device and no mesh: `set_activation_sharding` accepts only None, and the
-reference's remat policy (the backward's recompute) has no twin, since the
-port does not train LMs.
+device and no mesh: `set_activation_sharding` accepts only None.
+
+`loss_fn` is differentiable, with the reference's backward: its CE is an
+autograd Function that keeps only the logits and the fp32 log-sum-exp
+(`_SoftmaxXent`, the twin of the reference's custom-VJP `_softmax_xent`),
+the flash route's attention keeps only (out, lse) and runs the backward
+kernel (kernels/ops.flash_attention), and with `remat=True` (the
+default, as the reference's) each decoder block is recomputed in the
+backward under `torch.utils.checkpoint`, as the reference's `jax.checkpoint`
+does: only the blocks' inputs are kept between the passes.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -44,6 +52,17 @@ MOE_CHUNK = 1024
 # rows of whisper's learned decoder positions (the reference sizes them to
 # cover its decode shapes)
 DEC_POS_ROWS = 65536
+
+
+def set_remat_policy(name: Optional[str]) -> None:
+    """The reference's remat policy hook. None, the full recompute of each
+    block under `loss_fn(remat=True)`, is the only policy: the reference's
+    "ssm_proj" (also keep the SSM in-projection's output) would change
+    memory, not values, and is not ported."""
+    if name is not None:
+        raise ValueError(f"remat policy {name!r}: the port recomputes whole "
+                         "blocks (None) only")
+
 
 def set_activation_sharding(dp, sp=None, sp_divisor: int = 1,
                             moe_mesh=None, moe_dp_axes: tuple = ()) -> None:
@@ -469,12 +488,14 @@ def _layer_of(tree, i):
 
 
 def _run_group(cfg: ArchConfig, stacked, x, layers, *, caches, window,
-               enc_out=None, **kw):
+               enc_out=None, remat=False, **kw):
     """Blocks `layers` (a range) of a stacked group, each with its slice of
     the stacked caches (written in place). Whisper's cross-attention K/V
     come from `enc_out` (computed per layer; a prefill also writes them to
     the cache's `cross_k` / `cross_v`) or, at a decode step, from the
-    cache. Returns (x, summed aux)."""
+    cache. With `remat` (no caches) each block runs under a non-reentrant
+    `checkpoint`: its activations are recomputed in the backward, as the
+    reference's `jax.checkpoint` of the block. Returns (x, summed aux)."""
     aux_sum = 0.0
     for i in layers:
         p = _layer_of(stacked, i)
@@ -495,21 +516,25 @@ def _run_group(cfg: ArchConfig, stacked, x, layers, *, caches, window,
         if c is not None:
             block_cache = {k: v for k, v in c.items()
                            if not k.startswith("cross_")} or None
-        x, aux = block_forward(cfg, p, x, window=window, cache=block_cache,
-                               cross_kv=cross_kv, **kw)
+        if remat and caches is None:
+            x, aux = checkpoint(block_forward, cfg, p, x, window=window,
+                                cross_kv=cross_kv, use_reentrant=False, **kw)
+        else:
+            x, aux = block_forward(cfg, p, x, window=window,
+                                   cache=block_cache, cross_kv=cross_kv, **kw)
         aux_sum = aux_sum + aux
     return x, aux_sum
 
 
 def _run_decoder_stack(cfg: ArchConfig, params, x, *, positions, pos3=None,
                        caches=None, cache_index=None, enc_out=None,
-                       use_pallas=None):
+                       use_pallas=None, remat=False):
     """The arch's block groups in order: DeepSeek's dense layer 0, then
     either hymba's interleave (global 0, the first n_main // 2 windowed
-    layers, global 1, the rest, global 2) or the one `blocks` stack.
-    Returns (x, aux)."""
+    layers, global 1, the rest, global 2) or the one `blocks` stack; each
+    block recomputed in the backward with `remat`. Returns (x, aux)."""
     kw = dict(positions=positions, pos3=pos3, cache_index=cache_index,
-              use_pallas=use_pallas)
+              use_pallas=use_pallas, remat=remat)
     group_caches = (lambda name: None if caches is None  # noqa: E731
                     else caches[name])
     aux_total = 0.0
@@ -604,14 +629,36 @@ def _logits(cfg: ArchConfig, params, x):
     return x @ params["unembed"]
 
 
+class _SoftmaxXent(torch.autograd.Function):
+    """Per-token CE, the twin of the reference's memory-saving custom-VJP
+    `_softmax_xent`. Forward: fp32 log-sum-exp with the max taken out,
+    minus the target's logit; it keeps only the logits (in their dtype)
+    and the fp32 lse. Backward: (softmax - onehot) * g, the softmax
+    rebuilt from them, cast to the logits' dtype (`_softmax_xent_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        l32 = logits.float()
+        mx = l32.amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(l32 - mx).sum(dim=-1)) + mx[..., 0]
+        picked = l32.gather(-1, targets[..., None].long())[..., 0]
+        ctx.save_for_backward(logits, targets, lse)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, lse = ctx.saved_tensors
+        d = torch.exp(logits.float() - lse[..., None])
+        # minus the one-hot: each row's target entry, one writer each
+        flat = d.view(-1, d.shape[-1])
+        rows = torch.arange(flat.shape[0], device=d.device)
+        flat[rows, targets.reshape(-1).long()] -= 1.0
+        return d.mul_(g[..., None]).to(logits.dtype), None
+
+
 def _softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-token CE, the forward of the reference's custom-VJP CE: fp32
-    log-sum-exp with the max taken out, minus the target's logit."""
-    l32 = logits.float()
-    mx = l32.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(l32 - mx).sum(dim=-1)) + mx[..., 0]
-    picked = l32.gather(-1, targets[..., None].long())[..., 0]
-    return lse - picked
+    """Per-token CE [B, S] of logits [B, S, V] against targets [B, S]."""
+    return _SoftmaxXent.apply(logits, targets)
 
 
 # ---------------------------------------------------------------------------
@@ -619,16 +666,21 @@ def _softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
-    """Next-token CE + 0.01 x the MoE aux loss (forward value only: the
-    port does not train LMs). batch: tokens [B, S] (+ pos3 / patch_embeds
-    / frames). The VLM's patch prefix is left out of the loss."""
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: bool = True,
+            use_pallas=None):
+    """Next-token CE + 0.01 x the MoE aux loss, differentiable (see the
+    module's docstring); `remat` recomputes each decoder block in the
+    backward (the reference's default). batch: tokens [B, S] (+ pos3 /
+    patch_embeds / frames). The VLM's patch prefix is left out of the
+    loss. `use_pallas` reaches every attention call (None: the kernels on
+    the card)."""
     x, positions, pos3 = _embed_inputs(cfg, params, batch)
     enc_out = None
     if cfg.encoder_decoder:
-        enc_out = _encode(cfg, params, batch["frames"])
+        enc_out = _encode(cfg, params, batch["frames"], use_pallas)
     x, aux = _run_decoder_stack(cfg, params, x, positions=positions,
-                                pos3=pos3, enc_out=enc_out)
+                                pos3=pos3, enc_out=enc_out,
+                                use_pallas=use_pallas, remat=remat)
     x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
     tokens = batch["tokens"]
     if cfg.family == "vlm" and "patch_embeds" in batch:

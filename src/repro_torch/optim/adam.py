@@ -1,9 +1,18 @@
-"""Adam as a pure function on the `{"layers": [{name: tensor}]}` parameter
-dict, the twin of repro/optim/adam.py's `adam_init` / `adam_update`.
+"""Adam and SGD-momentum as pure functions on parameter trees, plus
+global-norm clipping: the twins of repro/optim/adam.py's `adam_init` /
+`adam_update`, `sgd_init` / `sgd_update` and `clip_by_global_norm`.
 
-The reference's formula, kept as it is (not `torch.optim.Adam`, which puts
-`eps` elsewhere): bias corrections c1 = 1 - b1**t and c2 = 1 - b2**t in
-float32 from an int32 step, then delta = (m / c1) / (sqrt(v / c2) + eps).
+A tree is nested dicts and lists of tensors, as `jax.tree` walks them: the
+GNN's `{"layers": [{name: tensor}]}` and an LM's nested dicts alike
+(tuples are leaves, so a function may return a tuple per leaf). Leaves go
+in the trees' own order: dicts in insertion order, where `jax.tree`
+sorts the keys (only the clip's sum of squares, over leaves, can differ
+in rounding).
+
+The reference's formulas, kept as they are (not `torch.optim.Adam`, which
+puts `eps` elsewhere): bias corrections c1 = 1 - b1**t and c2 = 1 - b2**t
+in float32 from an int32 step, then delta = (m / c1) / (sqrt(v / c2) +
+eps).
 """
 
 from __future__ import annotations
@@ -22,21 +31,28 @@ class AdamState(NamedTuple):
 
 
 def tree_map(fn, *trees) -> Params:
-    """Apply `fn` leaf by leaf over `{"layers": [{name: tensor}]}` trees of
-    the same structure."""
-    return {"layers": [
-        {name: fn(*(t["layers"][li][name] for t in trees)) for name in layer}
-        for li, layer in enumerate(trees[0]["layers"])]}
+    """Apply `fn` leaf by leaf over trees of the same structure (nested
+    dicts and lists; the first tree's keys)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: tree_map(fn, *(t[key] for t in trees)) for key in first}
+    if isinstance(first, list):
+        return [tree_map(fn, *items) for items in zip(*trees)]
+    return fn(*trees)
 
 
 def leaves(params: Params) -> list:
-    """The tensors of `params`, layer by layer in name order."""
-    return [t for layer in params["layers"] for t in layer.values()]
+    """The leaves of `params` in order (dicts in insertion order)."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in leaves(v)]
+    if isinstance(params, list):
+        return [t for v in params for t in leaves(v)]
+    return [params]
 
 
 def adam_init(params: Params) -> AdamState:
     zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-    device = next(iter(params["layers"][0].values())).device
+    device = leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=device)
     return AdamState(step=step, mu=zeros, nu=tree_map(torch.zeros_like, zeros))
 
@@ -83,12 +99,55 @@ def adam_step(
     """One training step: `loss_of` on fresh leaf copies of `params`, their
     gradients by one autograd pass, and one `adam_update`. Returns (the
     loss before the update, detached; new params; new state)."""
-    live = {"layers": [
-        {name: t.detach().requires_grad_() for name, t in layer.items()}
-        for layer in params["layers"]]}
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
     loss = loss_of(live)
     it = iter(torch.autograd.grad(loss, leaves(live)))
-    grads = {"layers": [{name: next(it) for name in layer}
-                        for layer in live["layers"]]}
+    grads = tree_map(lambda _: next(it), live)
     new_params, new_state = adam_update(grads, state, params, lr=lr)
     return loss.detach(), new_params, new_state
+
+
+class SGDState(NamedTuple):
+    velocity: Params
+
+
+def sgd_init(params: Params) -> SGDState:
+    return SGDState(velocity=tree_map(
+        lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+
+
+@torch.no_grad()
+def sgd_update(
+    grads: Params,
+    state: SGDState,
+    params: Params,
+    *,
+    lr: float = 1e-2,
+    momentum: float = 0.9,
+) -> tuple[Params, SGDState]:
+    """One SGD-momentum step: v = momentum * v + g (float32), p - lr * v;
+    the inputs are not modified."""
+    def upd(g, v, p):
+        v = momentum * v + g.to(torch.float32)
+        return p - lr * v.to(p.dtype), v
+
+    out = tree_map(upd, grads, state.velocity, params)
+    return (tree_map(lambda o: o[0], out),
+            SGDState(velocity=tree_map(lambda o: o[1], out)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Params,
+                        max_norm: float) -> tuple[Params, torch.Tensor]:
+    """Scale every gradient by min(1, max_norm / max(norm, 1e-12)), norm
+    the float32 square root of the summed squares over all leaves (summed
+    leaf by leaf, in order); returns (clipped grads in their dtypes,
+    norm)."""
+    sq = None
+    for g in leaves(grads):
+        term = torch.sum(torch.square(g.to(torch.float32)))
+        sq = term if sq is None else sq + term
+    norm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    grads), norm
