@@ -15,7 +15,8 @@ and raises on them all at its end):
                sm_90a, one nvcc each, all started together
                (each ptxas register / shared-memory report is printed; a
                ptxas remark that it serialized the wgmmas, or a spill in
-               any decode instantiation, fails the run).
+               any decode instantiation or any bf16 instantiation of the
+               flash backward, fails the run).
   3. kernels — the hand kernel against its plain PyTorch version on the
                card, sum and max, fp32 and bf16: the shapes of
                tests/test_kernels.py and the edge cases (an unreached row,
@@ -315,7 +316,10 @@ and raises on them all at its end):
  17. lm train — LM training (models/lm.py `loss_fn` under remat, the flash
                kernels' autograd Function, optim/): (a) the flash backward
                kernel (csrc/flash_attention_bwd.cu) from the forward
-               kernel's out and lse at FLASH_BWD_SHAPES (the step's bf16
+               kernel's out and lse at FLASH_BWD_STRADDLE (Sq = Skv one
+               short of and one past its bf16 tiles, 63-257, and 200
+               against 1000; B 1, H 2, both dtypes) and at
+               FLASH_BWD_SHAPES (the step's bf16
                [2, 32, 2048, 128] causal, row 3's [1, 32, 4096, 128] causal
                bf16 and fp32, hymba's [4, 25, 2048, 64] causal, whisper's
                full [4, 6, 1536, 64] and 448 against 1536): two launches
@@ -557,11 +561,35 @@ def phase_build(libraries) -> None:
         # kernel stays right but loses its overlap, so the build fails here
         serialized = [ln for ln in log if "serialized" in ln]
         assert not serialized, f"{lib.source.name}: {serialized}"
-        # the decode kernel keeps every instantiation free of spills
+        # the decode kernel keeps every instantiation free of spills, the
+        # flash backward its bf16 ones (wgmma; a spill serializes them)
         if lib.name == "decode_attention":
             spills = [ln.strip() for ln in log
                       if re.search(r"\b[1-9]\d* bytes spill", ln)]
             assert not spills, f"{lib.source.name}: {spills}"
+        if lib.name == "flash_attention_bwd" and lib.build_log is not None:
+            bf16 = {name: lines
+                    for name, lines in _spills_by_entry(log).items()
+                    if "bf16" in name or "bfloat16" in name}
+            assert len(bf16) >= 6, f"{lib.source.name}: bf16 entries {bf16}"
+            spills = {name: lines for name, lines in bf16.items() if lines}
+            assert not spills, f"{lib.source.name}: {spills}"
+
+
+def _spills_by_entry(log) -> dict:
+    """{entry function: its ptxas lines that report a non-zero spill} of
+    a build log (ptxas reports each entry's properties after the line that
+    names it)."""
+    out, entry = {}, None
+    for line in log:
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+            out[entry] = []
+        elif entry is not None and re.search(r"\b[1-9]\d* bytes spill",
+                                             line):
+            out[entry].append(line.strip())
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -4482,11 +4510,19 @@ FLASH_BWD_SHAPES = [
     (4, 6, 1536, 1536, 64, "bfloat16", False, 6, "whisper encoder"),
     (4, 6, 448, 1536, 64, "bfloat16", False, 6, "whisper cross-attention"),
 ]
+# Sq = Skv one short of and one past the bf16 kernels' 64-row q tile (dK /
+# dV) and 128-key tile (dK / dV; the dQ kernel's 128-row q tile), and 257;
+# a full call whose Skv is no multiple of a tile: (sq, skv, d, causal) at
+# B 1, H 2 in both dtypes, through the same holds
+FLASH_BWD_STRADDLE = [(s, s, d, causal) for s in (63, 65, 127, 129, 257)
+                      for d in (64, 128) for causal in (True, False)] + [
+                          (200, 1000, 64, False), (200, 1000, 128, False)]
 # kernel against plain version: the largest |kernel - plain| of dq, dk, dv
 # over the largest |plain|. fp32: both accumulate fp32 products, in other
 # orders (a 64-row tile walk against one matmul). bf16: the plain version
 # rounds the scores and dout V^T to bf16 where the reference does, the
-# kernel keeps them in fp32; the two land up to a few bf16 ulps apart
+# kernel keeps them in fp32 and rounds P and dS to bf16 as wgmma operands;
+# the two land up to a few bf16 ulps apart
 FLASH_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
 # against float64 (the same inputs, autograd of the softmax attention):
 # the kernel's mean error at most this many times the plain version's
@@ -4574,13 +4610,54 @@ def _sdpa_bwd_ms(torch, q, k, v, dout, causal) -> float:
     return ms
 
 
+def flash_bwd_straddle(torch, flash) -> None:
+    """The backward kernel at FLASH_BWD_STRADDLE (B 1, H 2, both dtypes),
+    from the forward kernel's out and lse: two launches bitwise equal, held
+    against its plain version and float64 (`_hold_bwd`)."""
+    t0 = time.perf_counter()
+    worst = {}
+    for sq, skv, d, causal in FLASH_BWD_STRADDLE:
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q, k, v = _attn_inputs(torch, (2, sq, d), (2, skv, d), tdt,
+                                   sq + skv + d + int(causal))
+            gen = torch.Generator(device=LM_TRAIN_DEVICE).manual_seed(sq + 2)
+            dout = torch.randn((2, sq, d), device=LM_TRAIN_DEVICE,
+                               generator=gen).to(tdt)
+            out, lse = flash.flash_attention(q, k, v, causal=causal,
+                                             return_lse=True)
+            got = flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                            causal=causal)
+            again = flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                              causal=causal)
+            key = (2, sq, skv, d, dtype, causal)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), (
+                f"flash bwd straddle {key}: two launches differ")
+            plain = flash.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                    causal=causal)
+            truth = _attention_f64_grads(torch, q, k, v, dout, causal)
+            errs = _bwd_errors(torch, got, plain, truth)
+            _hold_bwd(f"flash bwd straddle {key}", errs, dtype)
+            w = worst.setdefault(dtype, [0.0, 0.0])
+            for e in errs.values():
+                w[0] = max(w[0], e["rel_vs_plain"])
+                w[1] = max(w[1], e["f64_err"] / max(e["plain_f64_err"], 1e-30))
+    say(f"[lm train] flash bwd at {len(FLASH_BWD_STRADDLE)} tile-straddling "
+        "shapes x 2 dtypes: repeats bit for bit; worst |kernel - plain| / "
+        "largest, worst float64 error / plain's: "
+        + ", ".join(f"{dt} {w[0]:.3g}, {w[1]:.3f}" for dt, w in worst.items())
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
+
 def flash_bwd_checks(torch, flash) -> tuple[list, dict]:
-    """(a): the backward kernel at each FLASH_BWD_SHAPES shape from the
+    """(a): the backward kernel at FLASH_BWD_STRADDLE's shapes
+    (`flash_bwd_straddle`), then at each FLASH_BWD_SHAPES shape from the
     forward kernel's out and lse: two launches bitwise equal, held against
     its plain version and float64 (`_hold_bwd`; shown to reject a zeroed
     dv tile at the step's shape), with kernel / plain / SDPA-backward /
     bound ms; and the forward at PERF.md row 3's shapes with the lse store
     off and on. Returns ({key: row}, forward times)."""
+    flash_bwd_straddle(torch, flash)
     rows = {}
     for b, h, sq, skv, d, dtype, causal, kvh, what in FLASH_BWD_SHAPES:
         tdt = getattr(torch, dtype)

@@ -14,7 +14,12 @@ The backward (csrc/flash_attention_bwd.cu, its own library) replaces no
 TPU kernel: it is the twin of the reference's blockwise jnp backward
 (repro/models/layers.py:_flash_bwd), from the forward's out and lse:
 delta = rowsum(dout * out), then dK / dV in one kernel (a block per key
-tile) and dQ in another (a block per q tile), no atomics.
+tile) and dQ in another (a block per q tile), no atomics. bf16 runs on
+`wgmma` fed by TMA like the forward: dK / dV a block per 128-key tile
+with 64-row q / dout tiles streamed through a two-stage ring, dQ a block
+per 128-row q tile with 64-key K / V tiles; P and dS are rounded to bf16
+as the products' operands. fp32 runs on fp32 FMAs, 64-row and 64-key
+tiles.
 
 `flash_attention` / `flash_attention_bwd` launch the kernels on CUDA
 tensors only; `flash_attention_plain` / `flash_attention_bwd_plain`

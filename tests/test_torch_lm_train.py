@@ -99,7 +99,8 @@ def _leaves(prefix, tree) -> dict:
 # ---------------------------------------------------------------------------
 
 # (sq, skv, d, causal, block_q, block_k): the reference's blocks divide its
-# shapes; Skv 1000 is ragged against the kernel's 64-key tiles
+# shapes; Skv 1000 is ragged against every tile of the backward kernel's
+# (64 and 128 rows or keys)
 FLASH_CASES = [(256, 256, 64, True, 64, 128), (256, 256, 128, False, 128, 64),
                (128, 128, 128, True, 128, 128), (200, 1000, 64, False, 100, 250)]
 
@@ -282,6 +283,101 @@ def test_backward_source_is_built_at_first_use_without_float_atomics(
         flash.BWD_LIBRARY.build()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all([flash.BWD_LIBRARY])
+
+
+def _bwd_tiles() -> dict:
+    """The backward kernel's bf16 tiles by name (kBfDkvBlockK, kBfDkvBlockQ,
+    kBfDqBlockQ, kBfDqBlockK), read from its source."""
+    text = flash.BWD_LIBRARY.source.read_text()
+    return {name: int(val) for name, val in
+            re.findall(r"constexpr int (kBf\w+Block[QK]) = (\d+);", text)}
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# Sq = Skv one short of and one past the bf16 kernels' 64-row and 128-row
+# (or key) tiles, and one past two 128 tiles; a full call whose Skv is no
+# multiple of any tile
+BWD_STRADDLE_SIZES = (63, 65, 127, 129, 257)
+BWD_STRADDLE = [(s, s, d, causal) for s in BWD_STRADDLE_SIZES
+                for d in (64, 128) for causal in (True, False)] + [
+                    (200, 1000, 64, False), (200, 1000, 128, False)]
+
+
+def test_backward_source_is_the_hopper_design():
+    """The backward's source keeps its plain C entry point for sm_90a and
+    no float atomics, and its bf16 path issues wgmma on TMA copies; the
+    straddling sizes below and chip_smoke.py's are one short of and one
+    past each of its bf16 tiles."""
+    text = flash.BWD_LIBRARY.source.read_text()
+    for needle in ('extern "C"', "sm_90a", "wgmma.mma_async",
+                   "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg",
+                   "cuTensorMapEncodeTiled", "__grid_constant__"):
+        assert needle in text, needle
+    assert not re.search(r"\batomic\w*\s*\(", text)
+    tiles = _bwd_tiles()
+    assert set(tiles) == {"kBfDkvBlockK", "kBfDkvBlockQ", "kBfDqBlockQ",
+                          "kBfDqBlockK"}
+    edges = {t + o for t in tiles.values() for o in (-1, 1)}
+    assert sorted(edges | {2 * max(tiles.values()) + 1}) == list(
+        BWD_STRADDLE_SIZES)
+    assert _chip_smoke().FLASH_BWD_STRADDLE == BWD_STRADDLE
+
+
+def _oracle_grads(arrs, causal, dtype):
+    """jax.grad of sum(out^2) through the reference oracle, out in fp32."""
+    from repro.kernels import ref as jref
+
+    def loss(q, k, v):
+        out = jref.flash_attention_ref(q, k, v, causal=causal)
+        return (out.astype(jnp.float32) ** 2).sum()
+
+    args = [jnp.asarray(a, dtype) for a in arrs]
+    return [_f32(g) for g in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,d,causal", BWD_STRADDLE)
+def test_backward_at_the_tile_edges_matches_jax_grad(sq, skv, d, causal,
+                                                     dtype):
+    """The shapes that reach the bf16 kernels' ragged tiles on the card
+    (chip_smoke.py holds the kernel there), through `ops.flash_attention`'s
+    autograd Function on the CPU (the plain forward and backward), against
+    jax.grad of the reference oracle (B 1, H 2; the gradients of sum(out^2)).
+    fp32: rtol = atol = 1e-3, the reference's own custom-VJP test
+    (tests/test_kernels.py:225). bf16: each gradient's mean error against
+    the oracle's fp32 gradient (the same bf16 inputs) at most
+    BF16_GRAD_RATIO times the oracle's own bf16 gradient's."""
+    rng = np.random.default_rng(sq + skv + d + int(causal))
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((1, 2, sq, d), (1, 2, skv, d), (1, 2, skv, d))]
+    tdt = DTYPES[dtype][1]
+    targs = [torch.as_tensor(a).to(tdt).requires_grad_() for a in arrs]
+    out = ops.flash_attention(*targs, causal=causal)
+    assert out.grad_fn is not None
+    got = [_f32(g) for g in torch.autograd.grad(
+        (out.float() ** 2).sum(), targs)]
+    if dtype == "float32":
+        for name, g, w in zip("qkv", got, _oracle_grads(arrs, causal,
+                                                        jnp.float32)):
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-3,
+                                       err_msg=name)
+        return
+    rounded = [_f32(t.detach()) for t in targs]
+    truth = _oracle_grads(rounded, causal, jnp.float32)
+    own = _oracle_grads(rounded, causal, jnp.bfloat16)
+    for name, g, t, o in zip("qkv", got, truth, own):
+        err, ref_err = np.abs(g - t).mean(), np.abs(o - t).mean()
+        assert err <= BF16_GRAD_RATIO * ref_err, (name, err, ref_err)
 
 
 # ---------------------------------------------------------------------------
