@@ -15,8 +15,8 @@ and raises on them all at its end):
                sm_90a, one nvcc each, all started together
                (each ptxas register / shared-memory report is printed; a
                ptxas remark that it serialized the wgmmas, or a spill in
-               any decode instantiation or any bf16 instantiation of the
-               flash backward, fails the run).
+               any decode instantiation or any kernel of the flash
+               backward, bf16 or fp32, fails the run).
   3. kernels — the hand kernel against its plain PyTorch version on the
                card, sum and max, fp32 and bf16: the shapes of
                tests/test_kernels.py and the edge cases (an unreached row,
@@ -317,11 +317,11 @@ and raises on them all at its end):
                kernels' autograd Function, optim/): (a) the flash backward
                kernel (csrc/flash_attention_bwd.cu) from the forward
                kernel's out and lse at FLASH_BWD_STRADDLE (Sq = Skv one
-               short of and one past its bf16 tiles, 63-257, and 200
-               against 1000; B 1, H 2, both dtypes) and at
-               FLASH_BWD_SHAPES (the step's bf16
-               [2, 32, 2048, 128] causal, row 3's [1, 32, 4096, 128] causal
-               bf16 and fp32, hymba's [4, 25, 2048, 64] causal, whisper's
+               short of and one past its fp32 and bf16 tiles, 31-257, and
+               200 against 1000; B 1, H 2, both dtypes) and at
+               FLASH_BWD_SHAPES (the step's [2, 32, 2048, 128] causal,
+               row 3's [1, 32, 4096, 128] causal and hymba's
+               [4, 25, 2048, 64] causal, each bf16 and fp32; whisper's
                full [4, 6, 1536, 64] and 448 against 1536): two launches
                bitwise equal, held to its plain version (FLASH_BWD_TOL)
                and to a float64 evaluation (FLASH_BWD_F64_RATIO x the
@@ -340,9 +340,12 @@ and raises on them all at its end):
                2 layers one step's gradients on the kernel route (every
                attention call held to float64, `_checked_attention`)
                against the plain route's bf16 and fp32 gradients
-               (`_hold_grads`, shown to reject a zeroed gradient). (d) one
-               more step's gradients from the final state, twice, bit for
-               bit.
+               (`_hold_grads`, shown to reject a zeroed gradient); the
+               same weights' fp32 gradients on the kernel route (2 fp32
+               backward and 4 fp32 forward launches asserted), each leaf
+               held to the fp32 plain route's (LM_TRAIN_FP32_GRAD_REL),
+               their wall time printed. (d) one more step's gradients
+               from the final state, twice, bit for bit.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
@@ -352,8 +355,8 @@ one per (attention kernel, shape, dtype) of phase 6, one per (kernel,
 shape, dtype) phase 14's full-width run launched, and one per (kernel,
 shape) phase 15's runs launched (`launches_by_run` by arch), one per
 per-rank shape phase 16 timed with the launches its ranks made, one per
-backward shape of phase 17 (launches from its training run) and its
-training forward (lse on), then the
+backward shape of phase 17 (launches from its training run and its fp32
+cut) and its training forwards (lse on; bf16 and the cut's fp32), then the
 card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Per-shape results also go to chiprun_out/chip_smoke_kernels.json, the
@@ -398,6 +401,7 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, H100 SXM
 H100_BF16_FLOPS = 989e12     # bf16 tensor cores, dense, H100 SXM
+H100_TF32_FLOPS = 495e12     # TF32 tensor cores, dense, H100 SXM
 H100_SMS = 132               # streaming multiprocessors, H100 SXM
 SERVE_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_gnn_distributed.py:38
 # A sum of n unit-normal terms taken in two orders (the kernel's layout
@@ -562,17 +566,19 @@ def phase_build(libraries) -> None:
         serialized = [ln for ln in log if "serialized" in ln]
         assert not serialized, f"{lib.source.name}: {serialized}"
         # the decode kernel keeps every instantiation free of spills, the
-        # flash backward its bf16 ones (wgmma; a spill serializes them)
+        # flash backward every kernel of both paths (bf16 wgmma: a spill
+        # serializes them; fp32 mma.sync: a spill sits in the tile loop)
         if lib.name == "decode_attention":
             spills = [ln.strip() for ln in log
                       if re.search(r"\b[1-9]\d* bytes spill", ln)]
             assert not spills, f"{lib.source.name}: {spills}"
         if lib.name == "flash_attention_bwd" and lib.build_log is not None:
-            bf16 = {name: lines
-                    for name, lines in _spills_by_entry(log).items()
-                    if "bf16" in name or "bfloat16" in name}
-            assert len(bf16) >= 6, f"{lib.source.name}: bf16 entries {bf16}"
-            spills = {name: lines for name, lines in bf16.items() if lines}
+            entries = _spills_by_entry(log)
+            paths = {path: [name for name in entries if path in name]
+                     for path in ("bf16_kernel", "f32_kernel", "delta")}
+            assert all(len(names) >= 4 for names in paths.values()), (
+                f"{lib.source.name}: entries {list(entries)}")
+            spills = {name: lines for name, lines in entries.items() if lines}
             assert not spills, f"{lib.source.name}: {spills}"
 
 
@@ -4499,27 +4505,38 @@ LM_TRAIN_CUT_LAYERS = 2
 # the floor keeps a leaf where both bf16 runs land on the fp32 value)
 LM_TRAIN_GRAD_RATIO = 3.0
 LM_TRAIN_GRAD_FLOOR = 2.0 ** -8
+# the fp32 cut's kernel-route gradients against the plain route's: each
+# leaf's mean |kernel - plain| over its mean |plain| at most this; twice
+# the worst leaf (7.788e-6) of the fp32 FMA backward that the 3xTF32
+# kernel replaced, measured on an H100 80GB HBM3 at 700 W
+LM_TRAIN_FP32_GRAD_REL = 1.56e-5
 # the backward kernel's shapes (b, h, sq, skv, d, dtype, causal, what),
-# K/V with the arch's KV heads repeated (kv): the step's, PERF.md row 3's
-# (bf16 and fp32), hymba's, whisper's encoder and prefill cross-attention
+# K/V with the arch's KV heads repeated (kv): the step's (bf16, and fp32
+# as the fp32 cut launches it), PERF.md row 3's (bf16 and fp32), hymba's
+# (bf16 and fp32), whisper's encoder and prefill cross-attention
 FLASH_BWD_SHAPES = [
     (2, 32, 2048, 2048, 128, "bfloat16", True, 8, "qwen3-4b step"),
+    (2, 32, 2048, 2048, 128, "float32", True, 8, "qwen3-4b step"),
     (1, 32, 4096, 4096, 128, "bfloat16", True, 8, "row 3"),
     (1, 32, 4096, 4096, 128, "float32", True, 8, "row 3"),
     (4, 25, 2048, 2048, 64, "bfloat16", True, 5, "hymba"),
+    (4, 25, 2048, 2048, 64, "float32", True, 5, "hymba"),
     (4, 6, 1536, 1536, 64, "bfloat16", False, 6, "whisper encoder"),
     (4, 6, 448, 1536, 64, "bfloat16", False, 6, "whisper cross-attention"),
 ]
-# Sq = Skv one short of and one past the bf16 kernels' 64-row q tile (dK /
-# dV) and 128-key tile (dK / dV; the dQ kernel's 128-row q tile), and 257;
-# a full call whose Skv is no multiple of a tile: (sq, skv, d, causal) at
-# B 1, H 2 in both dtypes, through the same holds
-FLASH_BWD_STRADDLE = [(s, s, d, causal) for s in (63, 65, 127, 129, 257)
+# Sq = Skv one short of and one past the kernels' 32-row (fp32) and 64-row
+# (bf16) q tiles of dK / dV, their 32-key (fp32) and 64-key (bf16) tiles of
+# dQ, and their 128-key (dK / dV) and 128-row (dQ) blocks, and 257; a full
+# call whose Skv is no multiple of a tile: (sq, skv, d, causal) at B 1, H 2
+# in both dtypes, through the same holds
+FLASH_BWD_STRADDLE = [(s, s, d, causal)
+                      for s in (31, 33, 63, 65, 127, 129, 257)
                       for d in (64, 128) for causal in (True, False)] + [
                           (200, 1000, 64, False), (200, 1000, 128, False)]
 # kernel against plain version: the largest |kernel - plain| of dq, dk, dv
-# over the largest |plain|. fp32: both accumulate fp32 products, in other
-# orders (a 64-row tile walk against one matmul). bf16: the plain version
+# over the largest |plain|. fp32: both accumulate fp32-accurate products,
+# in other orders (the kernel's 3xTF32 tensor-core steps, added in fp32 a
+# tile at a time, against one matmul). bf16: the plain version
 # rounds the scores and dout V^T to bf16 where the reference does, the
 # kernel keeps them in fp32 and rounds P and dS to bf16 as wgmma operands;
 # the two land up to a few bf16 ulps apart
@@ -4584,15 +4601,16 @@ def _hold_bwd(name, errs, dtype) -> None:
 
 def _bwd_bound(dtype, bh, sq, skv, d, causal) -> tuple[float, str]:
     """(bound ms, bound by) of the backward: its five products of 2 Sq Skv
-    D operations a head (halved for causal: the unmasked pairs) over the
-    peak for its type, against the bytes it must move (q, k, v, out, dout
-    and lse read once, dq, dk, dv written once) over 3.35 TB/s."""
+    D operations a head (halved for causal: the unmasked pairs) on the
+    tensor cores, bf16 at 989 TFLOP/s, fp32 as three TF32 passes (3xTF32,
+    the kernel's design) at 495, against the bytes it must move (q, k, v,
+    out, dout and lse read once, dq, dk, dv written once) over 3.35 TB/s."""
     b = 2 if dtype == "bfloat16" else 4
-    peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_FP32_FLOPS
     pairs = sq * (sq + 1) // 2 if causal else sq * skv
     ops = 5 * 2 * bh * d * pairs
     nbytes = (4 * bh * sq * d + 4 * bh * skv * d) * b + 4 * bh * sq
-    t_ops = ops / peak * 1e3
+    t_ops = (ops / H100_BF16_FLOPS if dtype == "bfloat16"
+             else 3 * ops / H100_TF32_FLOPS) * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -4717,7 +4735,8 @@ def flash_bwd_checks(torch, flash) -> tuple[list, dict]:
             + ", ".join(f"{g} {e['f64_err']:.3g} / {e['plain_f64_err']:.3g}"
                         for g, e in errs.items())
             + f"; repeats bit for bit; ms {ms:.4f} plain {plain_ms:.4f} "
-            f"sdpa bwd {library_ms:.4f} bound {bound_ms:.4f} ({bound_by})")
+            f"sdpa bwd {library_ms:.4f} bound {bound_ms:.4f} ({bound_by}"
+            + (", 3xTF32)" if dtype == "float32" else ")"))
         del q, k, v, dout4, qf, kf, vf, dof, out, lse, got, plain
         torch.cuda.empty_cache()
 
@@ -4865,11 +4884,14 @@ def _hold_grads(errs, what) -> float:
     return worst
 
 
-def lm_train_cut(torch, optim, lm, layers, cfg, fails) -> dict:
+def lm_train_cut(torch, optim, lm, layers, flash, cfg, fails) -> dict:
     """(c): at LM_TRAIN_CUT_LAYERS layers, one step's gradients on the
     kernel route (every attention call held to float64 as phase 15 holds
     it, `_checked_attention`) against the plain route's, bf16 and the same
-    weights in fp32 (`_hold_grads`; shown to reject a zeroed gradient)."""
+    weights in fp32 (`_hold_grads`; shown to reject a zeroed gradient);
+    then the same weights' fp32 gradients on the kernel route, the fp32
+    flash forward and backward kernels' caller (their launches counted),
+    each leaf held to the fp32 plain route's (LM_TRAIN_FP32_GRAD_REL)."""
     c16 = dataclasses.replace(cfg, num_layers=LM_TRAIN_CUT_LAYERS)
     c32 = dataclasses.replace(c16, dtype="float32")
     dev = LM_TRAIN_DEVICE
@@ -4888,9 +4910,9 @@ def lm_train_cut(torch, optim, lm, layers, cfg, fails) -> dict:
     worst_calls = _hold_calls("bfloat16", calls, "lm train cut", fails)
     loss_p, plain16 = _lm_grads(torch, optim, lm, c16, params, batch,
                                 use_pallas=False)
-    loss_t, truth = _lm_grads(torch, optim, lm, c32,
-                              _to_dtype(torch, params, torch.float32),
-                              batch, use_pallas=False)
+    p32 = _to_dtype(torch, params, torch.float32)
+    loss_t, truth = _lm_grads(torch, optim, lm, c32, p32, batch,
+                              use_pallas=False)
     errs = _grad_mean_errors(torch, optim, kern, plain16, truth)
     worst = _hold_grads(errs, "lm train cut")
     wrong = optim.tree_map(lambda t: t, kern)
@@ -4903,16 +4925,49 @@ def lm_train_cut(torch, optim, lm, layers, cfg, fails) -> dict:
     else:
         raise AssertionError("the gradient check passes a zeroed wq "
                              "gradient")
+    del kern, plain16, wrong
+
+    # fp32 on the kernel route: 2 flash forwards a layer (the pass and its
+    # recompute) and one backward, at the step's shape in fp32
+    key32 = (b * cfg.num_heads, s, s, cfg.resolved_head_dim, "float32",
+             True)
+    flash.LAUNCHES.clear()
+    flash.BWD_LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_k32, kern32 = _lm_grads(torch, optim, lm, c32, p32, batch)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    launches32 = {"flash": {str(k): v for k, v in flash.LAUNCHES.items()},
+                  "flash_bwd": {str(k): v
+                                for k, v in flash.BWD_LAUNCHES.items()}}
+    assert launches32 == {
+        "flash": {str(key32): 2 * LM_TRAIN_CUT_LAYERS},
+        "flash_bwd": {str(key32): LM_TRAIN_CUT_LAYERS}}, launches32
+    rel32 = [float((g - t).abs().mean() / t.abs().mean().clamp_min(1e-30))
+             for g, t in zip(optim.leaves(kern32), optim.leaves(truth))]
+    worst32 = max(rel32)
+    assert worst32 <= LM_TRAIN_FP32_GRAD_REL, (
+        f"lm train cut fp32: leaf {rel32.index(worst32)} mean error "
+        f"{worst32:.3g} of its mean > {LM_TRAIN_FP32_GRAD_REL}")
     out = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
            "loss_fp32": float(loss_t), "worst_grad_ratio": worst,
-           "worst_call_ratio": worst_calls, "calls": len(calls)}
+           "worst_call_ratio": worst_calls, "calls": len(calls),
+           "fp32": {"loss_kernel": float(loss_k32), "grad_seconds": wall32,
+                    "leaf_rel_errors": rel32, "worst_leaf_rel": worst32,
+                    "bound": LM_TRAIN_FP32_GRAD_REL,
+                    "launches": launches32}}
     say(f"[lm train] cut ({LM_TRAIN_CUT_LAYERS} layers, batch {b}, seq {s}):"
         f" losses kernel {out['loss_kernel']:.6f} plain "
         f"{out['loss_plain']:.6f} fp32 {out['loss_fp32']:.6f}; {len(calls)}"
         f" attention calls against float64 (worst ratio to bound "
         f"{worst_calls}); gradients' mean error at most "
         f"{worst:.3f} of the bound (a zeroed wq gradient rejected)")
-    del params, kern, plain16, truth, wrong
+    say(f"[lm train] cut fp32 on the kernel route: loss {float(loss_k32):.6f}"
+        f"; launches {launches32}; gradient wall {wall32:.4f}s; worst leaf "
+        f"mean error {worst32:.4g} of its mean (bound "
+        f"{LM_TRAIN_FP32_GRAD_REL})")
+    del params, p32, kern32, truth
     torch.cuda.empty_cache()
     return out
 
@@ -4983,14 +5038,20 @@ def phase_lm_train(torch, flash, smi) -> tuple[list, dict]:
                "flash_fwd_lse": fwd}
     results["run"] = run = lm_train_run(torch, flash, optim, lm, layers, cfg)
     fails = []
-    results["cut"] = lm_train_cut(torch, optim, lm, layers, cfg, fails)
+    results["cut"] = lm_train_cut(torch, optim, lm, layers, flash, cfg,
+                                  fails)
     assert not fails, "phase 17: " + "; ".join(fails)
-    key = (LM_TRAIN["batch"] * cfg.num_heads, LM_TRAIN["seq"],
-           LM_TRAIN["seq"], cfg.resolved_head_dim, "bfloat16", True)
-    entries = [_bwd_entry(k, r, run["launches"]["flash_bwd"].get(str(k), 0))
+    # launches: the training run's (bf16) and the cut's fp32 gradient's
+    cut32 = results["cut"]["fp32"]["launches"]
+    entries = [_bwd_entry(k, r, run["launches"]["flash_bwd"].get(str(k), 0)
+                          + cut32["flash_bwd"].get(str(k), 0))
                for k, r in rows.items()]
-    entries.append(lm_train_fwd_entry(
-        torch, flash, key, run["launches"]["flash"][str(key)]))
+    for dtype, launches in (("bfloat16", run["launches"]["flash"]),
+                            ("float32", cut32["flash"])):
+        key = (LM_TRAIN["batch"] * cfg.num_heads, LM_TRAIN["seq"],
+               LM_TRAIN["seq"], cfg.resolved_head_dim, dtype, True)
+        entries.append(lm_train_fwd_entry(torch, flash, key,
+                                          launches[str(key)]))
     results["phase_seconds"] = time.perf_counter() - t_phase
     say(f"[lm train] phase 17 {results['phase_seconds']:.1f}s (kernel "
         f"checks {t_kernels:.1f}s)")

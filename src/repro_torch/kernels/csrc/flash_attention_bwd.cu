@@ -77,19 +77,68 @@
 // reference keeps p and ds in fp32 (models/layers.py:_flash_bwd); S and
 // dout V^T stay fp32, where the reference rounds them to bf16.
 //
-// fp32: fp32 FMAs on the CUDA cores. Every tile is staged in shared
-// memory (rows padded by 4 floats: 16-byte loads of neighbouring rows
-// fall on other banks); dK / dV a block per 64-key tile and dQ a block
-// per 64-row q tile. Each thread owns a 4 x 4 micro-tile of S and dout
-// V^T (rows 4 tr + i, keys tc + 16 j) and then 4 rows or keys x D / 16
-// columns of its accumulators (float4 loads, 8 to 10 FMAs a shared-memory
-// word).
+// fp32: 3xTF32 on the tensor cores (mma.sync), fed by TMA. The CUDA cores'
+// fp32 FMAs cap the seven products at 67 TFLOP/s; the tensor cores run
+// TF32 (10 mantissa bits) at 495. Each fp32 operand x is split in
+// registers into big, x rounded to tf32 (to nearest, ties away: what
+// cvt.rna.tf32.f32 computes, in two integer instructions where ptxas
+// expands cvt.rna into four), and small = x - big, exact in fp32, of which
+// the tensor cores read the top 10 mantissa bits. A product is small.big
+// + big.small + big.big (CUTLASS's OpMultiplyAddFastF32 split; it drops
+// small.small, about 2^-22 of the product): three TF32 passes, 165 TFLOP/s
+// of fp32-accurate products at best.
+// Why mma.sync.m16n8k8 and not wgmma: wgmma has its transpose operand only
+// for 16-bit types; with .tf32 both shared-memory operands must be
+// K-major. Three of the seven products read B the other way (dV += P^T
+// dout, dK += dS^T q, dQ += dS K), and wgmma would need a big and a small
+// copy of every operand in shared memory plus transposed copies for those
+// three: past 227 KB for a dK / dV block at D 128. mma.sync gathers its
+// fragments with shared loads in either orientation from one fp32 tile
+// and splits them in registers.
+// Layout. Tiles come by cp.async.bulk.tensor from fp32 tensor maps (32
+// columns, 128 bytes, a box: a D 128 row is four boxes, 128-byte swizzle)
+// through a ring of kF32Stages stages (full and empty mbarriers, as in
+// bf16). A producer warpgroup (one thread issues the copies) and two
+// consumer warpgroups: eight warps of 16 keys (dK / dV) or 16 rows (dQ).
+// Every fragment load is 8 bytes and applies the swizzle's XOR; a warp's
+// loads fall on 32 distinct banks per half-warp (`Offsets`).
+//   dK / dV (dkdv_f32_kernel): a block per 128-key tile, K and V resident;
+//   32-row q / dout tiles stream, their rows' lse (times log2 e) and delta
+//   copied by the producer warp's lanes. A consumer takes S^T = K_w q^T
+//   (16 keys x 32 rows), forms P^T, adds dV_w += P^T dout, then takes dP^T
+//   = V_w dout^T, forms dS^T and adds dK_w += dS^T q.
+//   dQ (dq_f32_kernel): a block per 128-row q tile (the longest first), q
+//   and dout resident; 32-key K / V tiles stream. S = q_w K^T, dP =
+//   dout_w V^T, dQ_w += dS K.
+// The accumulator is the next product's A fragment without a shuffle: an
+// m16n8k8 accumulator lane holds columns (2t, 2t + 1) where A's lane holds
+// k-slots (t, t + 4), so k-slot t of a step is taken as column 2t and slot
+// t + 4 as column 2t + 1, and the B fragment reads the same rows (the sum
+// over a step is the same). The score products likewise take each k-step's
+// 8 columns of D in an order that puts a lane's two elements side by side.
+// Rounding: the tensor cores add a step into an fp32 accumulator without
+// rounding to nearest (they may truncate), so no long chain is kept
+// there. A score's two k-steps (16 columns of D) go into a fresh
+// accumulator, small terms first, added to the score in fp32; dV, dK and
+// dQ take a tile's 32 rows or keys into two fresh accumulators, one for
+// the big.big passes and one for the small terms, both added in fp32.
+// Sums are taken in a fixed order, so a run repeats bit for bit. Ragged
+// and diagonal tiles mask by index as in bf16.
+// Registers: setmaxnreg gives the consumers 240 a thread (the producers
+// 24). A dK / dV consumer holds dK and dV (D / 2 registers each) and ptxas
+// fills the rest with loads it moves early; to leave nothing to spill, no
+// value lives through a tile that need not: the lane is read anew where
+// it is used (`lane_id`), dQ's rows' lse and delta are read from shared
+// memory at each tile, P^T is taken back from its fragments after dV
+// (neither is held through dP^T), and each role computes its tile range
+// after setmaxnreg.
 //
 // Bound. Five products of 2 Sq Skv D operations a head (halved when
 // causal): at the qwen3-4b step 171.9 GFLOP, 0.174 ms at 989 TFLOP/s
-// bf16 (H100 SXM; 5.1 ms for row 3's fp32 shape at 67 TFLOP/s); it moves
-// q, k, v, out, dout read once, dq, dk, dv written, lse and delta: 0.27
-// GB in bf16, 0.08 ms.
+// bf16 (H100 SXM); fp32 takes three TF32 passes of each at 495 TFLOP/s,
+// 2.083 ms at row 3's fp32 shape [1, 32, 4096, 128] causal (5.13 ms on the
+// CUDA cores at 67 TFLOP/s). The bytes: q, k, v, out, dout read once, dq,
+// dk, dv written, lse and delta: 0.27 GB in bf16, 0.08 ms.
 //
 // Plain C entry point, bound from Python with ctypes
 // (kernels/flash_attention.py). The tensor maps are encoded on the host
@@ -106,11 +155,7 @@
 
 namespace {
 
-// fp32
-constexpr int kBlockQ = 64;   // q rows a tile
-constexpr int kBlockK = 64;   // keys a tile
-constexpr int kThreads = 256; // 16 x 16 micro-tiles of 4 x 4
-constexpr int kPPad = kBlockK + 4;
+constexpr int kThreads = 256;  // the delta kernel's block: a warp a row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -118,138 +163,6 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-
-// 8 consecutive elements from global memory (16-byte aligned), widened
-__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// 4 fp32 values to 4 consecutive elements of global memory
-__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-
-// rows [r0, r0 + kRows) of a [s, D] matrix, widened to fp32, into
-// dst[kRows][D + 4]; rows past s are zeros
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void stage(float (*dst)[D + 4], const T* src,
-                                      int r0, int s) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    float v[8];
-    if (r0 + r < s) {
-      load8(src + (int64_t)(r0 + r) * D + c, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
-    }
-    *reinterpret_cast<float4*>(&dst[r][c]) =
-        make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(&dst[r][c + 4]) =
-        make_float4(v[4], v[5], v[6], v[7]);
-  }
-}
-
-// S = q k^T and dP = dout v^T for the thread's micro-tile: rows 4 tr + i,
-// keys tc + 16 j of the staged tiles
-template <int D>
-__device__ __forceinline__ void scores(float (*q)[D + 4], float (*o)[D + 4],
-                                       float (*k)[D + 4], float (*v)[D + 4],
-                                       int tr, int tc, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float4 a[4], g[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(&q[4 * tr + i][c]);
-      g[i] = *reinterpret_cast<const float4*>(&o[4 * tr + i][c]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(&k[tc + 16 * j][c]);
-      const float4 w = *reinterpret_cast<const float4*>(&v[tc + 16 * j][c]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
-        dp[i][j] = fmaf(g[i].x, w.x, dp[i][j]);
-        dp[i][j] = fmaf(g[i].y, w.y, dp[i][j]);
-        dp[i][j] = fmaf(g[i].z, w.z, dp[i][j]);
-        dp[i][j] = fmaf(g[i].w, w.w, dp[i][j]);
-      }
-    }
-  }
-}
-
-// P and dS of the micro-tile, in place of s and dp: rows q0 + 4 tr + i,
-// keys k0 + tc + 16 j; lse2 is the row's lse in log2 units
-__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
-                                      const float* lse2, const float* delta,
-                                      int q0, int k0, int tr, int tc, int sq,
-                                      int skv, int causal, float scale) {
-  const float sl2 = scale * kLog2e;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tr + i;
-    const float l2 = lse2[4 * tr + i], dl = delta[4 * tr + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tc + 16 * j;
-      const bool keep = row < sq && key < skv && (!causal || key <= row);
-      const float p = keep ? exp2f(fmaf(s[i][j], sl2, -l2)) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dl) * scale;
-    }
-  }
-}
-
-// one row's lse (times log2 e) and delta into shared memory; rows past sq
-// get 0 (their P is masked)
-__device__ __forceinline__ void stage_rows(float* lse2, float* dl,
-                                           const float* lse,
-                                           const float* delta, int q0,
-                                           int sq) {
-  for (int r = threadIdx.x; r < kBlockQ; r += kThreads) {
-    const bool in = q0 + r < sq;
-    lse2[r] = in ? lse[q0 + r] * kLog2e : 0.f;
-    dl[r] = in ? delta[q0 + r] : 0.f;
-  }
-}
-
-template <int D>
-struct KvTiles {
-  float k[kBlockK][D + 4];
-  float v[kBlockK][D + 4];
-  float q[kBlockQ][D + 4];
-  float o[kBlockQ][D + 4];   // dout
-  float p[kBlockQ][kPPad];   // P  [row][key]
-  float ds[kBlockQ][kPPad];  // dS [row][key]
-  float lse2[kBlockQ];
-  float delta[kBlockQ];
-};
-
-template <int D>
-struct QTiles {
-  float q[kBlockQ][D + 4];
-  float o[kBlockQ][D + 4];   // dout
-  float k[kBlockK][D + 4];
-  float v[kBlockK][D + 4];
-  float dst[kBlockK][kPPad]; // dS transposed, [key][row]
-  float lse2[kBlockQ];
-  float delta[kBlockQ];
-};
 
 // delta[row] = sum_d out[row, d] * dout[row, d] in fp32, one warp a row
 template <typename T, int D>
@@ -269,177 +182,6 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int sq, int skv,
-            float scale, int causal) {
-  constexpr int kCols = D / 16;  // accumulator columns a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  KvTiles<D>& sm = *reinterpret_cast<KvTiles<D>*>(smem);
-  const int tid = threadIdx.x;
-  // scores: rows 4 tr + i, keys tc + 16 j; sums: keys 4 kg + kk,
-  // columns g * 64 + 4 dc + u
-  const int tr = tid / 16, tc = tid % 16;
-  const int kg = tid / 16, dc = tid % 16;
-  const int64_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;
-  stage<T, D, kBlockK>(sm.k, k + bh * skv * D, k0, skv);
-  stage<T, D, kBlockK>(sm.v, v + bh * skv * D, k0, skv);
-
-  float acc_k[4][kCols], acc_v[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
-  const int n_q = (sq + kBlockQ - 1) / kBlockQ;
-  // causal (Sq == Skv): q tiles above the key tile's first key are masked
-  const int first = causal ? k0 / kBlockQ : 0;
-  for (int t = first; t < n_q; ++t) {
-    const int q0 = t * kBlockQ;
-    stage<T, D, kBlockQ>(sm.q, q + bh * sq * D, q0, sq);
-    stage<T, D, kBlockQ>(sm.o, dout + bh * sq * D, q0, sq);
-    stage_rows(sm.lse2, sm.delta, lse + bh * sq, delta + bh * sq, q0, sq);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores<D>(sm.q, sm.o, sm.k, sm.v, tr, tc, s, dp);
-    probs(s, dp, sm.lse2, sm.delta, q0, k0, tr, tc, sq, skv, causal, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sm.p[4 * tr + i][tc + 16 * j] = s[i][j];
-        sm.ds[4 * tr + i][tc + 16 * j] = dp[i][j];
-      }
-    __syncthreads();
-
-    // dV += P^T dout, dK += dS^T q over the tile's rows, in order
-#pragma unroll 4
-    for (int r = 0; r < kBlockQ; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&sm.p[r][4 * kg]);
-      const float4 d4 = *reinterpret_cast<const float4*>(&sm.ds[r][4 * kg]);
-      const float pk[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float dk4[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 o4 =
-            *reinterpret_cast<const float4*>(&sm.o[r][g * 64 + 4 * dc]);
-        const float4 q4 =
-            *reinterpret_cast<const float4*>(&sm.q[r][g * 64 + 4 * dc]);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc_v[kk][4 * g + 0] = fmaf(pk[kk], o4.x, acc_v[kk][4 * g + 0]);
-          acc_v[kk][4 * g + 1] = fmaf(pk[kk], o4.y, acc_v[kk][4 * g + 1]);
-          acc_v[kk][4 * g + 2] = fmaf(pk[kk], o4.z, acc_v[kk][4 * g + 2]);
-          acc_v[kk][4 * g + 3] = fmaf(pk[kk], o4.w, acc_v[kk][4 * g + 3]);
-          acc_k[kk][4 * g + 0] = fmaf(dk4[kk], q4.x, acc_k[kk][4 * g + 0]);
-          acc_k[kk][4 * g + 1] = fmaf(dk4[kk], q4.y, acc_k[kk][4 * g + 1]);
-          acc_k[kk][4 * g + 2] = fmaf(dk4[kk], q4.z, acc_k[kk][4 * g + 2]);
-          acc_k[kk][4 * g + 3] = fmaf(dk4[kk], q4.w, acc_k[kk][4 * g + 3]);
-        }
-      }
-    }
-    __syncthreads();  // the q, dout, P and dS tiles are consumed
-  }
-
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int key = k0 + 4 * kg + kk;
-    if (key >= skv) continue;
-    T* dkr = dk + (bh * skv + key) * D;
-    T* dvr = dv + (bh * skv + key) * D;
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const int c = g * 64 + 4 * dc;
-      store4(dkr + c, acc_k[kk][4 * g + 0], acc_k[kk][4 * g + 1],
-             acc_k[kk][4 * g + 2], acc_k[kk][4 * g + 3]);
-      store4(dvr + c, acc_v[kk][4 * g + 0], acc_v[kk][4 * g + 1],
-             acc_v[kk][4 * g + 2], acc_v[kk][4 * g + 3]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int sq, int skv, float scale, int causal) {
-  constexpr int kCols = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  QTiles<D>& sm = *reinterpret_cast<QTiles<D>*>(smem);
-  const int tid = threadIdx.x;
-  // scores: rows 4 tr + i, keys tc + 16 j; sums: rows 4 rg + i,
-  // columns g * 64 + 4 dc + u
-  const int tr = tid / 16, tc = tid % 16;
-  const int rg = tid / 16, dc = tid % 16;
-  const int64_t bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // longest first
-  stage<T, D, kBlockQ>(sm.q, q + bh * sq * D, q0, sq);
-  stage<T, D, kBlockQ>(sm.o, dout + bh * sq * D, q0, sq);
-  stage_rows(sm.lse2, sm.delta, lse + bh * sq, delta + bh * sq, q0, sq);
-
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-
-  // causal (Sq == Skv): key tiles past the q tile's last row are masked
-  const int kv_end = causal ? min(skv, q0 + kBlockQ) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    stage<T, D, kBlockK>(sm.k, k + bh * skv * D, k0, skv);
-    stage<T, D, kBlockK>(sm.v, v + bh * skv * D, k0, skv);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores<D>(sm.q, sm.o, sm.k, sm.v, tr, tc, s, dp);
-    probs(s, dp, sm.lse2, sm.delta, q0, k0, tr, tc, sq, skv, causal, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sm.dst[tc + 16 * j][4 * tr + i] = dp[i][j];
-    __syncthreads();
-
-    // dQ += dS K over the tile's keys, in order
-#pragma unroll 4
-    for (int key = 0; key < kBlockK; ++key) {
-      const float4 d4 = *reinterpret_cast<const float4*>(&sm.dst[key][4 * rg]);
-      const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int g = 0; g < D / 64; ++g) {
-        const float4 k4 =
-            *reinterpret_cast<const float4*>(&sm.k[key][g * 64 + 4 * dc]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * g + 0] = fmaf(dr[i], k4.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(dr[i], k4.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(dr[i], k4.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(dr[i], k4.w, acc[i][4 * g + 3]);
-        }
-      }
-    }
-    __syncthreads();  // the K, V and dS tiles are consumed
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    if (row >= sq) continue;
-    T* dqr = dq + (bh * sq + row) * D;
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const int c = g * 64 + 4 * dc;
-      store4(dqr + c, acc[i][4 * g + 0], acc[i][4 * g + 1],
-             acc[i][4 * g + 2], acc[i][4 * g + 3]);
-    }
-  }
-}
-
-template <typename T, int D>
 cudaError_t launch_delta(const void* out, const void* dout, void* delta,
                          long long bh, int sq, cudaStream_t stream) {
   const long long rows = bh * sq;
@@ -450,48 +192,6 @@ cudaError_t launch_delta(const void* out, const void* dout, void* delta,
                                  static_cast<float*>(delta), rows);
   return cudaGetLastError();
 }
-
-// fp32: delta, dK / dV, dQ
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* out, const void* dout, const void* lse,
-                   void* delta, void* dq, void* dk, void* dv, long long bh,
-                   int sq, int skv, float scale, int causal,
-                   cudaStream_t stream) {
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const float* flse = static_cast<const float*>(lse);
-  float* fdl = static_cast<float*>(delta);
-
-  cudaError_t err = launch_delta<T, D>(out, dout, delta, bh, sq, stream);
-  if (err != cudaSuccess) return err;
-
-  const int smem_kv = (int)sizeof(KvTiles<D>);
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_kv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((unsigned)bh, (unsigned)((skv + kBlockK - 1) / kBlockK));
-  dkdv_kernel<T, D><<<grid_kv, kThreads, smem_kv, stream>>>(
-      tq, tk, tv, tdo, flse, fdl, static_cast<T*>(dk), static_cast<T*>(dv),
-      sq, skv, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int smem_q = (int)sizeof(QTiles<D>);
-  err = cudaFuncSetAttribute(dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_q);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((unsigned)bh, (unsigned)((sq + kBlockQ - 1) / kBlockQ));
-  dq_kernel<T, D><<<grid_q, kThreads, smem_q, stream>>>(
-      tq, tk, tv, tdo, flse, fdl, static_cast<T*>(dq), sq, skv, scale,
-      causal);
-  return cudaGetLastError();
-}
-
 
 // ------------------------------------------------------------------ bf16
 constexpr int kBfDkvBlockK = 128;  // keys a dK / dV block: 2 consumers x 64
@@ -1161,6 +861,594 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ------------------------------------------------------------------ fp32
+constexpr int kF32DkvBlockK = 128;  // keys a dK / dV block: 8 warps x 16
+constexpr int kF32DkvBlockQ = 32;   // q rows a tile of the dK / dV ring
+constexpr int kF32DqBlockQ = 128;   // q rows a dQ block: 8 warps x 16
+constexpr int kF32DqBlockK = 32;    // keys a tile of the dQ ring
+constexpr int kF32Stages = 3;       // stages of a ring
+// pairs of 8-column blocks of D that `accumulate` takes together
+constexpr int kDkvPairs = 1;        // dK / dV (dK and dV hold 128 registers)
+constexpr int kDqPairs = 2;         // dQ
+constexpr int kF32Threads = 384;    // producer warpgroup + 2 consumers
+// setmaxnreg: 128 x 24 + 256 x 240 = 64,512, the launch bound's 168 a thread
+constexpr int kF32ProducerRegs = 24;
+constexpr int kF32ConsumerRegs = 240;
+constexpr int kF32Box = 32;         // fp32 columns of a 128-byte swizzled box
+
+// Shared memory of a block, from a 1024-byte aligned base; a tile is
+// [D / 32][rows][32] fp32. dK / dV: K, V [128 keys], then per stage q,
+// dout [32 rows], then per stage the rows' lse (log2 units) and delta,
+// then the barriers.
+template <int D>
+struct DkvF32Layout {
+  static constexpr int kKvTile = kF32DkvBlockK * D * 4;   // one of K, V
+  static constexpr int kRowTile = kF32DkvBlockQ * D * 4;  // one of q, dout
+  static constexpr int kK = 0;
+  static constexpr int kV = kKvTile;
+  static constexpr int kStage = 2 * kKvTile;
+  static constexpr int kStageBytes = 2 * kRowTile;
+  static constexpr int kRows = kStage + kF32Stages * kStageBytes;
+  static constexpr int kBars = kRows + kF32Stages * 2 * kF32DkvBlockQ * 4;
+  // K and V, full [stages], empty [stages]
+  static constexpr int kBytes = kBars + (1 + 2 * kF32Stages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // slack to align the base
+};
+
+// dQ: q, dout [128 rows], then per stage K, V [32 keys], then the rows'
+// lse and delta, then the barriers
+template <int D>
+struct DqF32Layout {
+  static constexpr int kRowTile = kF32DqBlockQ * D * 4;  // one of q, dout
+  static constexpr int kKvTile = kF32DqBlockK * D * 4;   // one of K, V
+  static constexpr int kQ = 0;
+  static constexpr int kO = kRowTile;
+  static constexpr int kStage = 2 * kRowTile;
+  static constexpr int kStageBytes = 2 * kKvTile;
+  // the rows' lse (log2 units), then their delta
+  static constexpr int kRows = kStage + kF32Stages * kStageBytes;
+  static constexpr int kBars = kRows + 2 * kF32DqBlockQ * 4;
+  // q and dout, full [stages], empty [stages]
+  static constexpr int kBytes = kBars + (1 + 2 * kF32Stages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// the D / 32 boxes of rows [r0, r0 + kRows) of one bh into a tile at dst
+template <int D, int kRows>
+__device__ __forceinline__ void tma_tile_f32(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int r0, int bh) {
+#pragma unroll
+  for (int c = 0; c < D / kF32Box; ++c)
+    tma_load_3d(dst + c * kRows * 128, map, bar, c * kF32Box, r0, bh);
+}
+
+// Per-lane word offsets into a tile as TMA wrote it ([D / 32][rows][32]
+// fp32, a row's 16-byte chunks XORed with row % 8: the 128-byte swizzle),
+// g = lane / 4, t = lane % 4. Each is one 8-byte load whose two words fall,
+// over the warp, on 32 distinct banks per half-warp.
+//   pair ^ (c << 2), c < 4: a score k-step's two columns of row g. k-step
+//     4 b + c of D takes the chunks c and c + 4 of box b: slot t is column
+//     32 b + 16 (t / 2) + 4 c + 2 (t % 2), slot t + 4 the next one.
+//   col[i] ^ (h << 4): columns 16 h + 2 g and 16 h + 2 g + 1 of row 2 t + i
+//     of a box (h < 2): the n-index g of two column blocks of 8 (the
+//     accumulators' n-index m of block p holds column 16 (p / 2) + 2 m +
+//     p % 2).
+// Box b adds b * rows * 32 words, a row that is a multiple of 8 r * 32.
+struct Offsets {
+  int pair, col[2];
+};
+
+// the lane, read anew at each call: what is made from it is not kept live
+// through a tile (ptxas spilled such values at the register cap)
+__device__ __forceinline__ int lane_id() {
+  int lane;
+  asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(lane));
+  return lane;
+}
+
+__device__ __forceinline__ Offsets lane_offsets() {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+  Offsets o;
+  o.pair = 32 * g + (((4 * (t >> 1)) ^ g) << 2) + 2 * (t & 1);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    o.col[i] =
+        64 * t + 32 * i + (((g >> 1) ^ (2 * t + i)) << 2) + 2 * (g & 1);
+  return o;
+}
+
+// the stage of the i-th tile, computed anew where it is needed (a stage
+// address held through a tile was spilled at the register cap)
+__device__ __forceinline__ int stage_of(int i) {
+  asm volatile("" : "+r"(i));
+  return i % kF32Stages;
+}
+
+// x as big + small: big is x rounded to tf32 (to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite value: half a tf32 ulp added,
+// the 13 low bits cleared; ptxas expands cvt.rna into twice as many
+// instructions), small = x - big, exact in fp32, of which the tensor cores
+// read the top 10 mantissa bits (CUTLASS's OpMultiplyAddFastF32 split)
+template <int N>
+struct Split {
+  uint32_t big[N], small[N];
+};
+
+template <int N>
+__device__ __forceinline__ Split<N> split(const float (&x)[N]) {
+  Split<N> s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s.big[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
+    s.small[i] = __float_as_uint(x[i] - __uint_as_float(s.big[i]));
+  }
+  return s;
+}
+
+// d[4] += A[16 x 8] * B[8 x 8], tf32 operands, fp32 accumulator. Lane
+// (g, t): a = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b = (t, g),
+// (t + 4, g); d = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[4] = A * B: a fresh accumulator, C given as zeros
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// A 16 x 32 score tile of one warp: acc[n][e] = sum_d A[g + 8 (e / 2)][d]
+// * B[8 n + 2 t + e % 2][d], A the warp's 16 rows of a tile of kRowsA rows,
+// B a tile of 32. Two k-steps (16 columns of D) at a time go into a fresh
+// accumulator, the small terms first, added to acc in fp32. The k-steps
+// are a loop, not unrolled: fewer registers live, smaller code.
+template <int D, int kRowsA>
+__device__ __forceinline__ void scores(float (&acc)[4][4], const float* A,
+                                       const float* B) {
+  const Offsets o = lane_offsets();
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < D / 8; k += 2) {  // k-steps k and k + 1 of box k / 4
+    const float* ab = A + (k >> 2) * kRowsA * 32;
+    const float* bb = B + (k >> 2) * 32 * 32;
+    int off[2];
+    Split<4> a[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      off[h] = o.pair ^ (((k & 3) + h) << 2);
+      const float2 lo = *reinterpret_cast<const float2*>(ab + off[h]);
+      const float2 hi = *reinterpret_cast<const float2*>(ab + 256 + off[h]);
+      const float ax[4] = {lo.x, hi.x, lo.y, hi.y};
+      a[h] = split(ax);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      Split<2> b[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 y =
+            *reinterpret_cast<const float2*>(bb + off[h] + 256 * n);
+        const float bx[2] = {y.x, y.y};
+        b[h] = split(bx);
+      }
+      float d[4];
+      mma_tf32_first(d, a[0].small, b[0].big);
+      mma_tf32(d, a[0].big, b[0].small);
+      mma_tf32(d, a[1].small, b[1].big);
+      mma_tf32(d, a[1].big, b[1].small);
+      mma_tf32(d, a[0].big, b[0].big);
+      mma_tf32(d, a[1].big, b[1].big);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += d[e];
+    }
+  }
+}
+
+// The A fragments of a 16 x 32 score tile x in its accumulator layout
+// (P^T, dS^T or dS), split: k-step j takes column 8 j + 2 t of x as slot t
+// and 8 j + 2 t + 1 as slot t + 4, so x[j] is its own fragment.
+__device__ __forceinline__ void a_frags(const float (&x)[4][4],
+                                        Split<4> (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float ax[4] = {x[j][0], x[j][2], x[j][1], x[j][3]};
+    a[j] = split(ax);
+  }
+}
+
+// x[n][e] of the fragments again: big + small is x exactly
+__device__ __forceinline__ float a_value(const Split<4> (&a)[4], int n,
+                                         int e) {
+  const int i = (e & 1) * 2 + (e >> 1);  // e 0, 1, 2, 3 -> 0, 2, 1, 3
+  return __uint_as_float(a[n].big[i]) + __uint_as_float(a[n].small[i]);
+}
+
+// acc[n] += X B over a tile's 32 rows (or keys): X as its A fragments
+// (`a_frags`), B [32][D] a tile of 32 rows. 2 kPairs column blocks of 8
+// (16 kPairs columns of D, `col` of Offsets) go together. Each takes the
+// tile's big.big passes into a fresh accumulator and its small terms into
+// another (two independent chains of tensor-core steps), both added to
+// acc in fp32.
+template <int D, int kPairs>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const Split<4> (&a)[4],
+                                           const float* B) {
+  constexpr int kBlocks = 2 * kPairs;
+  const Offsets o = lane_offsets();
+#pragma unroll
+  for (int n = 0; n < D / 8; n += kBlocks) {
+    float big[kBlocks][4], small[kBlocks][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const int m = n + 2 * q;  // blocks m and m + 1
+        const float* b0 = B + (m / 4) * 32 * 32 + 256 * j;
+        const int h = ((m / 2) % 2) << 4;  // the box's second 16 columns
+        const float2 lo =
+            *reinterpret_cast<const float2*>(b0 + (o.col[0] ^ h));
+        const float2 hi =
+            *reinterpret_cast<const float2*>(b0 + (o.col[1] ^ h));
+        const float bx[2][2] = {{lo.x, hi.x}, {lo.y, hi.y}};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int k = 2 * q + i;
+          const Split<2> b = split(bx[i]);
+          if (j == 0) {
+            mma_tf32_first(small[k], a[j].small, b.big);
+            mma_tf32_first(big[k], a[j].big, b.big);
+          } else {
+            mma_tf32(small[k], a[j].small, b.big);
+            mma_tf32(big[k], a[j].big, b.big);
+          }
+          mma_tf32(small[k], a[j].big, b.small);
+        }
+      }
+#pragma unroll
+    for (int k = 0; k < kBlocks; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n + k][e] += big[k][e] + small[k][e];
+  }
+}
+
+// acc's rows r and r + 8 (the lane's g and g + 8) to a [rows][D] fp32
+// matrix at `out` (row r of the lane): blocks n, n + 1 of 8 columns give
+// columns 16 (n / 2) + 4 t .. + 3 (see Offsets)
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[D / 8][4],
+                                           bool lo_in, bool hi_in) {
+  const int t = lane_id() & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; n += 2)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (r == 0 ? lo_in : hi_in)
+        *reinterpret_cast<float4*>(out + 8 * r * D + 8 * n + 4 * t) =
+            make_float4(acc[n][2 * r], acc[n + 1][2 * r], acc[n][2 * r + 1],
+                        acc[n + 1][2 * r + 1]);
+}
+
+// dK / dV of one 128-key tile. Consumer warp cw owns keys k0 + 16 cw .. + 15;
+// its products are transposed (keys as rows), so P^T and dS^T come out as
+// the A fragments of dV += P^T dout and dK += dS^T q.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap omap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, int sq,
+                int skv, float scale, int causal) {
+  using L = DkvF32Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* sm = smem_raw + (base - raw);
+  float* rows_sm =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + L::kRows);
+  const uint32_t kvbar = base + L::kBars, full = kvbar + 8;
+  const uint32_t empty = full + 8 * kF32Stages;
+  // the warpgroup, warp-uniform as ptxas sees it (setmaxnreg needs that)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kF32DkvBlockK;
+  // the first q tile; causal (Sq == Skv): the tiles above the key tile's
+  // first key are masked. Each role computes it after setmaxnreg (kept
+  // live through it, ptxas spilled it).
+  auto first_tile = [&]() { return causal ? k0 / kF32DkvBlockQ : 0; };
+
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(full + 8 * st, 1 + 32);  // the copies' arrival + 32 lanes
+      mbar_init(empty + 8 * st, 8);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---- producer: warp 0; lane 0 the copies, a lane a row
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(kF32ProducerRegs));
+    if (tid >= 32) return;
+    const int first = first_tile();
+    const int n_q = (sq + kF32DkvBlockQ - 1) / kF32DkvBlockQ;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * L::kKvTile);
+      tma_tile_f32<D, kF32DkvBlockK>(base + L::kK, &kmap, kvbar, k0, bh);
+      tma_tile_f32<D, kF32DkvBlockK>(base + L::kV, &vmap, kvbar, k0, bh);
+    }
+    const float* lb = lse + (int64_t)bh * sq;
+    const float* db = delta + (int64_t)bh * sq;
+    for (int j = first; j < n_q; ++j) {
+      const int st = (j - first) % kF32Stages;
+      const int round = (j - first) / kF32Stages;
+      // a stage's previous tile must be consumed first
+      if (round > 0) mbar_wait_or_trap(empty + 8 * st, (round - 1) & 1);
+      if (lane == 0) {
+        const uint32_t qs = base + L::kStage + st * L::kStageBytes;
+        mbar_expect_tx(full + 8 * st, 2 * L::kRowTile);
+        tma_tile_f32<D, kF32DkvBlockQ>(qs, &qmap, full + 8 * st,
+                                       j * kF32DkvBlockQ, bh);
+        tma_tile_f32<D, kF32DkvBlockQ>(qs + L::kRowTile, &omap, full + 8 * st,
+                                       j * kF32DkvBlockQ, bh);
+      }
+      float* r = rows_sm + st * 2 * kF32DkvBlockQ;
+      const int row = j * kF32DkvBlockQ + lane;
+      const bool in = row < sq;  // rows past sq are masked
+      r[lane] = in ? lb[row] * kLog2e : 0.f;
+      r[kF32DkvBlockQ + lane] = in ? db[row] : 0.f;
+      mbar_arrive(full + 8 * st);  // each lane: its stores are released
+    }
+    return;
+  }
+
+  // ---- consumers: per q tile S^T, P^T, dV, then dP^T, dS^T, dK
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               ::"n"(kF32ConsumerRegs));
+  const int first = first_tile();
+  const int cw = (tid - 128) / 32;
+  const int kc0 = k0 + 16 * cw;  // the warp's first key; keys kc0 + g (+ 8)
+  const float sl2 = scale * kLog2e;
+  // the warp's 16 keys of K and V
+  const float* kw = reinterpret_cast<const float*>(sm + L::kK) + 16 * cw * 32;
+  const float* vw = reinterpret_cast<const float*>(sm + L::kV) + 16 * cw * 32;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  // the i-th tile of the walk: q rows from r0 = (first + i) * 32, stage
+  // i % kF32Stages
+  for (int i = 0, r0 = first * kF32DkvBlockQ; r0 < sq;
+       ++i, r0 += kF32DkvBlockQ) {
+    const int st = i % kF32Stages, parity = (i / kF32Stages) & 1;
+    mbar_wait(full + 8 * st, parity);
+    // no key of the warp, or every key above every row
+    if (kc0 >= skv || (causal && r0 + kF32DkvBlockQ - 1 < kc0)) {
+      __syncwarp();
+      if (lane_id() == 0) mbar_arrive(empty + 8 * st);
+      continue;
+    }
+    const float* qs =
+        reinterpret_cast<const float*>(sm + L::kStage + st * L::kStageBytes);
+    const float* os = qs + L::kRowTile / 4;
+    const float* rl = rows_sm + st * 2 * kF32DkvBlockQ;  // lse2, then delta
+
+    // S^T = K_w q^T, then P^T: element (key kc0 + g + 8 (e / 2), row r0 +
+    // 8 n + 2 t + e % 2)
+    float s[4][4], dp[4][4];
+    scores<D, kF32DkvBlockK>(s, kw, qs);
+    const bool edge = r0 + kF32DkvBlockQ > sq || kc0 + 16 > skv ||
+                      (causal && kc0 + 15 > r0);
+    const int g = lane_id() >> 2, t = lane_id() & 3;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = 8 * n + 2 * t + (e & 1);
+        const float p = exp2f(fmaf(s[n][e], sl2, -rl[ri]));
+        const int key = kc0 + g + 8 * (e >> 1), row = r0 + ri;
+        const bool keep = row < sq && key < skv && (!causal || key <= row);
+        s[n][e] = edge && !keep ? 0.f : p;
+      }
+    Split<4> a[4];
+    a_frags(s, a);
+    accumulate<D, kDkvPairs>(dva, a, os);  // dV_w += P^T dout
+    // P^T again from its fragments, before dP^T: neither P^T nor its
+    // fragments are held through dV and dP^T both (the register peak)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = a_value(a, n, e);
+        asm volatile("" : "+f"(s[n][e]));
+      }
+    // dP^T = V_w dout^T, then dS^T = P^T (dP^T - delta) scale
+    scores<D, kF32DkvBlockK>(dp, vw, os);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ri = 8 * n + 2 * t + (e & 1);
+        dp[n][e] = s[n][e] * (dp[n][e] - rl[kF32DkvBlockQ + ri]) * scale;
+      }
+    a_frags(dp, a);
+    accumulate<D, kDkvPairs>(dka, a, qs);  // dK_w += dS^T q
+    __syncwarp();
+    if (lane_id() == 0) mbar_arrive(empty + 8 * stage_of(i));  // warp done
+  }
+
+  const int key = kc0 + lane_id() / 4;  // and key + 8
+  const int64_t at = ((int64_t)bh * skv + key) * D;
+  store_rows<D>(dk + at, dka, key < skv, key + 8 < skv);
+  store_rows<D>(dv + at, dva, key < skv, key + 8 < skv);
+}
+
+// dQ of one 128-row q tile. Consumer warp cw owns rows q0 + 16 cw .. + 15.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap omap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, int sq, int skv, float scale,
+              int causal) {
+  using L = DqF32Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t qbar = base + L::kBars, full = qbar + 8;
+  const uint32_t empty = full + 8 * kF32Stages;
+  // the warpgroup, warp-uniform as ptxas sees it (setmaxnreg needs that)
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32DqBlockQ;  // longest first
+  // the key tiles; causal (Sq == Skv): those past the q tile's last row are
+  // masked. Each role computes it after setmaxnreg.
+  auto tiles = [&]() {
+    const int kv_end = causal ? min(skv, q0 + kF32DqBlockQ) : skv;
+    return (kv_end + kF32DqBlockK - 1) / kF32DqBlockK;
+  };
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---- producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(kF32ProducerRegs));
+    if (tid == 0) {
+      const int n_tiles = tiles();
+      mbar_expect_tx(qbar, 2 * L::kRowTile);
+      tma_tile_f32<D, kF32DqBlockQ>(base + L::kQ, &qmap, qbar, q0, bh);
+      tma_tile_f32<D, kF32DqBlockQ>(base + L::kO, &omap, qbar, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kF32Stages, round = j / kF32Stages;
+        if (round > 0) mbar_wait_or_trap(empty + 8 * st, (round - 1) & 1);
+        const uint32_t ks = base + L::kStage + st * L::kStageBytes;
+        mbar_expect_tx(full + 8 * st, 2 * L::kKvTile);
+        tma_tile_f32<D, kF32DqBlockK>(ks, &kmap, full + 8 * st,
+                                      j * kF32DqBlockK, bh);
+        tma_tile_f32<D, kF32DqBlockK>(ks + L::kKvTile, &vmap, full + 8 * st,
+                                      j * kF32DqBlockK, bh);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: per key tile S, P, dP, dS, then dQ += dS K
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               ::"n"(kF32ConsumerRegs));
+  const int n_tiles = tiles();
+  const int cw = (tid - 128) / 32;
+  const int rw0 = q0 + 16 * cw;  // the warp's first row; rows rw0 + g (+ 8)
+  const float sl2 = scale * kLog2e;
+  // the warp's rows' lse (log2 units) and delta, read at each tile from
+  // shared memory (not held in registers through it); rows past sq are
+  // masked
+  float* rows_sm =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + L::kRows);
+  {
+    const int row = rw0 + lane % 16;
+    const bool in = row < sq;
+    rows_sm[kF32DqBlockQ * (lane / 16) + 16 * cw + lane % 16] =
+        !in ? 0.f
+        : lane < 16 ? lse[(int64_t)bh * sq + row] * kLog2e
+                    : delta[(int64_t)bh * sq + row];
+    __syncwarp();
+  }
+  // the warp's 16 rows of q and dout
+  const float* qw = reinterpret_cast<const float*>(sm + L::kQ) + 16 * cw * 32;
+  const float* ow = reinterpret_cast<const float*>(sm + L::kO) + 16 * cw * 32;
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kF32Stages, parity = (j / kF32Stages) & 1;
+    const int kt0 = j * kF32DqBlockK;
+    mbar_wait(full + 8 * st, parity);
+    // no row of the warp, or every key above every row
+    if (rw0 >= sq || (causal && kt0 > rw0 + 15)) {
+      __syncwarp();
+      if (lane_id() == 0) mbar_arrive(empty + 8 * st);
+      continue;
+    }
+    const float* ks =
+        reinterpret_cast<const float*>(sm + L::kStage + st * L::kStageBytes);
+    const float* vs = ks + L::kKvTile / 4;
+
+    // S = q_w K^T, then P: element (row rw0 + g + 8 (e / 2), key kt0 + 8 n
+    // + 2 t + e % 2)
+    float s[4][4], dp[4][4];
+    scores<D, kF32DqBlockQ>(s, qw, ks);
+    const bool edge = rw0 + 16 > sq || kt0 + kF32DqBlockK > skv ||
+                      (causal && kt0 + kF32DqBlockK - 1 > rw0);
+    const int g = lane_id() >> 2, t = lane_id() & 3;
+    const float* rl = rows_sm + 16 * cw + g;  // lse2 of rows g, g + 8
+    const float lse2[2] = {rl[0], rl[8]};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[n][e], sl2, -lse2[e >> 1]));
+        const int row = rw0 + g + 8 * (e >> 1);
+        const int key = kt0 + 8 * n + 2 * t + (e & 1);
+        const bool keep = row < sq && key < skv && (!causal || key <= row);
+        s[n][e] = edge && !keep ? 0.f : p;
+      }
+    // dP = dout_w V^T, then dS = P (dP - delta) scale
+    scores<D, kF32DqBlockQ>(dp, ow, vs);
+    const float dl[2] = {rl[kF32DqBlockQ], rl[kF32DqBlockQ + 8]};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
+    Split<4> a[4];
+    a_frags(dp, a);
+    accumulate<D, kDqPairs>(dqa, a, ks);  // dQ_w += dS K
+    __syncwarp();
+    if (lane_id() == 0) mbar_arrive(empty + 8 * st);  // this warp is done
+  }
+
+  const int row = rw0 + lane_id() / 4;  // and row + 8
+  store_rows<D>(dq + ((int64_t)bh * sq + row) * D, dqa, row < sq,
+                row + 8 < sq);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -1183,21 +1471,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [bh, s, d] bf16 tensor as a 3-D map (dims d, s, bh), boxes of 64
-// columns x `rows` rows x 1, 128-byte swizzle; reads past s are zeros
+// a [bh, s, d] tensor of `elem` bytes (2: bf16, 4: fp32) as a 3-D map
+// (dims d, s, bh), boxes of 128 bytes of columns x `rows` rows x 1,
+// 128-byte swizzle; reads past s are zeros
 cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long bh, int s,
-                       int d, int rows) {
+                       int d, int rows, int elem = 2) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
-  const cuuint32_t box[3] = {kBox, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem,
+                                 (cuuint64_t)s * d * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows, 1};
+  const cuuint32_t elems[3] = {1, 1, 1};
   const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, elems,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -1252,6 +1544,57 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const void* lse,
+                       void* delta, void* dq, void* dk, void* dv, long long bh,
+                       int sq, int skv, float scale, int causal,
+                       cudaStream_t stream) {
+  cudaError_t err = launch_delta<float, D>(out, dout, delta, bh, sq, stream);
+  // dK / dV: q and dout in 32-row boxes, K and V in 128-row boxes; dQ:
+  // q and dout in 128-row boxes, K and V in 32-row boxes
+  CUtensorMap q_kv, o_kv, k_kv, v_kv, q_q, o_q, k_q, v_q;
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    int s, rows;
+  } maps[] = {{&q_kv, q, sq, kF32DkvBlockQ}, {&o_kv, dout, sq, kF32DkvBlockQ},
+              {&k_kv, k, skv, kF32DkvBlockK}, {&v_kv, v, skv, kF32DkvBlockK},
+              {&q_q, q, sq, kF32DqBlockQ}, {&o_q, dout, sq, kF32DqBlockQ},
+              {&k_q, k, skv, kF32DqBlockK}, {&v_q, v, skv, kF32DqBlockK}};
+  for (const auto& m : maps)
+    if (err == cudaSuccess)
+      err = tensor_map(m.map, m.ptr, bh, m.s, D, m.rows, 4);
+  if (err != cudaSuccess) return err;
+  const float* flse = static_cast<const float*>(lse);
+  const float* fdl = static_cast<const float*>(delta);
+
+  const int smem_kv = DkvF32Layout<D>::kAlloc;
+  err = cudaFuncSetAttribute(dkdv_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_kv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((unsigned)bh,
+                     (unsigned)((skv + kF32DkvBlockK - 1) / kF32DkvBlockK));
+  dkdv_f32_kernel<D><<<grid_kv, kF32Threads, smem_kv, stream>>>(
+      q_kv, o_kv, k_kv, v_kv, flse, fdl, static_cast<float*>(dk),
+      static_cast<float*>(dv), sq, skv, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int smem_q = DqF32Layout<D>::kAlloc;
+  err = cudaFuncSetAttribute(dq_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_q);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((unsigned)bh,
+                    (unsigned)((sq + kF32DqBlockQ - 1) / kF32DqBlockQ));
+  dq_f32_kernel<D><<<grid_q, kF32Threads, smem_q, stream>>>(
+      q_q, o_q, k_q, v_q, flse, fdl, static_cast<float*>(dq), sq, skv, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1267,8 +1610,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         int dtype, int causal, float scale, void* stream) {
   // the grid's second dimension: dQ blocks of q rows, dK / dV blocks of
   // keys
-  const int block_q = dtype == 0 ? kBlockQ : kBfDqBlockQ;
-  const int block_k = dtype == 0 ? kBlockK : kBfDkvBlockK;
+  const int block_q = dtype == 0 ? kF32DqBlockQ : kBfDqBlockQ;
+  const int block_k = dtype == 0 ? kF32DkvBlockK : kBfDkvBlockK;
   if (bh <= 0 || sq <= 0 || skv <= 0 || bh > 0x7fffffffLL ||
       sq > 0x7fffffffLL || skv > 0x7fffffffLL ||
       (sq + block_q - 1) / block_q > 65535 ||
@@ -1277,11 +1620,11 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int isq = (int)sq, iskv = (int)skv;
   if (dtype == 0 && d == 64)
-    return (int)launch<float, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                  bh, isq, iskv, scale, causal, s);
+    return (int)launch_f32<64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                               bh, isq, iskv, scale, causal, s);
   if (dtype == 0 && d == 128)
-    return (int)launch<float, 128>(q, k, v, out, dout, lse, delta, dq, dk,
-                                   dv, bh, isq, iskv, scale, causal, s);
+    return (int)launch_f32<128>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                bh, isq, iskv, scale, causal, s);
   if (dtype == 1 && d == 64)
     return (int)launch_bf16<64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
                                 bh, isq, iskv, scale, causal, s);

@@ -286,11 +286,12 @@ def test_backward_source_is_built_at_first_use_without_float_atomics(
 
 
 def _bwd_tiles() -> dict:
-    """The backward kernel's bf16 tiles by name (kBfDkvBlockK, kBfDkvBlockQ,
-    kBfDqBlockQ, kBfDqBlockK), read from its source."""
+    """The backward kernel's tiles by name, bf16 (kBfDkvBlockK,
+    kBfDkvBlockQ, kBfDqBlockQ, kBfDqBlockK) and fp32 (kF32...), read from
+    its source."""
     text = flash.BWD_LIBRARY.source.read_text()
-    return {name: int(val) for name, val in
-            re.findall(r"constexpr int (kBf\w+Block[QK]) = (\d+);", text)}
+    return {name: int(val) for name, val in re.findall(
+        r"constexpr int (k(?:Bf|F32)\w+Block[QK]) = (\d+);", text)}
 
 
 def _chip_smoke():
@@ -304,10 +305,10 @@ def _chip_smoke():
     return module
 
 
-# Sq = Skv one short of and one past the bf16 kernels' 64-row and 128-row
-# (or key) tiles, and one past two 128 tiles; a full call whose Skv is no
-# multiple of any tile
-BWD_STRADDLE_SIZES = (63, 65, 127, 129, 257)
+# Sq = Skv one short of and one past the kernels' 32-row (fp32), 64-row
+# (bf16) and 128-row (or key) tiles, and one past two 128 tiles; a full
+# call whose Skv is no multiple of any tile
+BWD_STRADDLE_SIZES = (31, 33, 63, 65, 127, 129, 257)
 BWD_STRADDLE = [(s, s, d, causal) for s in BWD_STRADDLE_SIZES
                 for d in (64, 128) for causal in (True, False)] + [
                     (200, 1000, 64, False), (200, 1000, 128, False)]
@@ -315,22 +316,50 @@ BWD_STRADDLE = [(s, s, d, causal) for s in BWD_STRADDLE_SIZES
 
 def test_backward_source_is_the_hopper_design():
     """The backward's source keeps its plain C entry point for sm_90a and
-    no float atomics, and its bf16 path issues wgmma on TMA copies; the
-    straddling sizes below and chip_smoke.py's are one short of and one
-    past each of its bf16 tiles."""
+    no float atomics; its bf16 path issues wgmma on TMA copies, its fp32
+    path 3xTF32 mma.sync (operands split in registers, big rounded to
+    tf32 to nearest) on TMA copies of fp32 tiles, the old FMA kernels
+    gone; the straddling sizes below and chip_smoke.py's are one short of
+    and one past each of its tiles, bf16 and fp32."""
     text = flash.BWD_LIBRARY.source.read_text()
     for needle in ('extern "C"', "sm_90a", "wgmma.mma_async",
                    "cp.async.bulk.tensor", "mbarrier.try_wait", "setmaxnreg",
                    "cuTensorMapEncodeTiled", "__grid_constant__"):
         assert needle in text, needle
     assert not re.search(r"\batomic\w*\s*\(", text)
+    fp32 = text[text.index("-" * 66 + " fp32"):]
+    for needle in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                   ".tf32", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32",
+                   "tma_load_3d", "setmaxnreg", "dkdv_f32_kernel",
+                   "dq_f32_kernel", "launch_f32"):
+        assert needle in fp32, needle
+    # the split: big = x rounded to tf32 (half a tf32 ulp, 13 bits
+    # cleared), small = x - big
+    assert re.search(r"\+ 0x1000u\) & 0xffffe000u", fp32)
+    assert re.search(r"x\[i\] - __uint_as_float\(s\.big\[i\]\)", fp32)
+    assert not re.search(r"\b(dkdv|dq)_kernel\b", text)  # the FMA kernels
     tiles = _bwd_tiles()
-    assert set(tiles) == {"kBfDkvBlockK", "kBfDkvBlockQ", "kBfDqBlockQ",
-                          "kBfDqBlockK"}
+    assert set(tiles) == {f"k{p}{k}Block{a}" for p in ("Bf", "F32")
+                          for k, a in (("Dkv", "K"), ("Dkv", "Q"),
+                                       ("Dq", "Q"), ("Dq", "K"))}
     edges = {t + o for t in tiles.values() for o in (-1, 1)}
     assert sorted(edges | {2 * max(tiles.values()) + 1}) == list(
         BWD_STRADDLE_SIZES)
     assert _chip_smoke().FLASH_BWD_STRADDLE == BWD_STRADDLE
+
+
+@pytest.mark.parametrize("dtype,bh,s,d,ms", [
+    ("float32", 32, 4096, 128, 2.083),   # row 3: 3 TF32 passes
+    ("float32", 100, 2048, 64, 0.814),   # hymba
+    ("bfloat16", 64, 2048, 128, 0.174),  # the qwen3-4b step
+])
+def test_backward_bound_counts_three_tf32_passes_for_fp32(dtype, bh, s, d,
+                                                          ms):
+    """chip_smoke.py's bound of the causal backward: the five products on
+    the tensor cores, bf16 at 989 TFLOP/s, fp32 as three TF32 passes at
+    495 TFLOP/s (the fp32 kernel's 3xTF32), bound by operations."""
+    bound, by = _chip_smoke()._bwd_bound(dtype, bh, s, s, d, True)
+    assert round(bound, 3) == ms and by == "operations"
 
 
 def _oracle_grads(arrs, causal, dtype):
@@ -349,7 +378,7 @@ def _oracle_grads(arrs, causal, dtype):
 @pytest.mark.parametrize("sq,skv,d,causal", BWD_STRADDLE)
 def test_backward_at_the_tile_edges_matches_jax_grad(sq, skv, d, causal,
                                                      dtype):
-    """The shapes that reach the bf16 kernels' ragged tiles on the card
+    """The shapes that reach the kernels' ragged tiles on the card
     (chip_smoke.py holds the kernel there), through `ops.flash_attention`'s
     autograd Function on the CPU (the plain forward and backward), against
     jax.grad of the reference oracle (B 1, H 2; the gradients of sum(out^2)).
