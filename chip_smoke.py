@@ -345,7 +345,21 @@ and raises on them all at its end):
                backward and 4 fp32 forward launches asserted), each leaf
                held to the fp32 plain route's (LM_TRAIN_FP32_GRAD_REL),
                their wall time printed. (d) one more step's gradients
-               from the final state, twice, bit for bit.
+               from the final state, twice, bit for bit. (e) the
+               selective remat policy (`lm.set_remat_policy`) at
+               mamba2-370m's full width and depth (LM_REMAT: 48 layers,
+               batch 1, seq 4096, bf16): the policy off, then "ssm_proj",
+               each from seed 2's weights and batch, 1 cold and 1 warm
+               step of the same step as (b); losses and gradient norms
+               bit for bit between the two, no attention route taken;
+               prints each run's warm step, the gradient's peak and the
+               step's peak. (f) hymba-1.5b at full width cut to 5 of 32
+               layers (LM_REMAT_CUT: 3 global and 2 windowed, batch 1,
+               seq 2048, flash on every layer): one step's gradients on
+               the kernel route with the policy off and on, every leaf bit
+               for bit, the flash forward (2 a layer) and backward (1)
+               launches counted from 0 and equal, and the backward one
+               `aten.mm` short a block under the policy.
 
 It prints one JSON object {"kernels": [...]} on a line of its own, one
 entry per shape of phase 5 with the launches phases 4, 7-11 and 12's grid
@@ -4549,6 +4563,24 @@ FLASH_BWD_F64_RATIO = 2.0
 # kernel from fp32 sums; a score of |s| < 8 is off by up to 2^-6 there
 LSE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
 LM_TRAIN_DEVICE = "cuda"
+# (e) the reference's selective remat policy, "ssm_proj"
+# (src/repro/models/lm.py:60-69; it keeps the SSM in-projection for the
+# recompute), on mamba2-370m at full width and depth
+# (src/repro/configs/mamba2_370m.py: 48 layers, d_model 1024, an
+# in-projection 4384 wide), batch 1 at the train_4k sequence its comment
+# prices (4096), bf16, remat; the step of (b); the policy off and then on,
+# each from seed 2's weights and batch, 1 cold step and `warm_steps` (cut
+# from 2 for the smoke's time: a step takes 11-12 s off and 18-19 s on,
+# the selective checkpoint's dispatch mode costing 19-26 us an aten op,
+# PERF.md)
+LM_REMAT_ARCH = "mamba2-370m"
+LM_REMAT = {"batch": 1, "seq": 4096, "warm_steps": 1}
+LM_REMAT_POLICY = "ssm_proj"
+# (f) hymba-1.5b at full width cut to 5 of 32 layers (global 0, windowed
+# 0, global 1, windowed 1, global 2), batch 1, seq 2048: no longer than
+# the window, so flash takes every attention layer
+LM_REMAT_CUT_ARCH = "hymba-1.5b"
+LM_REMAT_CUT = {"num_layers": 5, "batch": 1, "seq": 2048}
 
 
 def _attention_f64_grads(torch, q, k, v, dout, causal, chunk=8):
@@ -4768,13 +4800,15 @@ def flash_bwd_checks(torch, flash) -> tuple[list, dict]:
 
 
 def _lm_grads(torch, optim, lm, cfg, params, batch, remat=True,
-              use_pallas=None):
+              use_pallas=None, backward_mode=None):
     """(loss, gradients as a tree like `params`) of `lm.loss_fn`; weights
-    that take no part get zeros, as `jax.grad` gives them."""
+    that take no part get zeros, as `jax.grad` gives them. The backward
+    runs under `backward_mode` if one is given."""
     live = optim.tree_map(lambda t: t.detach().requires_grad_(), params)
     loss = lm.loss_fn(cfg, live, batch, remat=remat, use_pallas=use_pallas)
-    grads = iter(torch.autograd.grad(loss, optim.leaves(live),
-                                     materialize_grads=True))
+    with backward_mode or contextlib.nullcontext():
+        grads = iter(torch.autograd.grad(loss, optim.leaves(live),
+                                         materialize_grads=True))
     return loss.detach(), optim.tree_map(lambda _: next(grads), params)
 
 
@@ -4972,6 +5006,173 @@ def lm_train_cut(torch, optim, lm, layers, flash, cfg, fails) -> dict:
     return out
 
 
+def lm_remat_run(torch, optim, lm, layers, flash, smi) -> dict:
+    """(e): LM_REMAT_ARCH at full width and depth, the policy off and then
+    LM_REMAT_POLICY, each from the same weights and batch: 1 cold and
+    LM_REMAT["warm_steps"] warm steps of loss -> autograd ->
+    clip_by_global_norm -> adam_update. The two runs' losses and gradient
+    norms bit for bit; no attention route taken (the arch has none).
+    Each step's peak is read twice: after the gradient (the policy's
+    saved products live until the backward reaches their block) and
+    after Adam's update."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(LM_REMAT_ARCH)
+    b, s = LM_REMAT["batch"], LM_REMAT["seq"]
+    steps = 1 + LM_REMAT["warm_steps"]
+    dev = LM_TRAIN_DEVICE
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)}
+    runs = {}
+    for policy in (None, LM_REMAT_POLICY):
+        torch.cuda.empty_cache()
+        params = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(2), dev)
+        state = optim.adam_init(params)
+        layers.ROUTES.clear()
+        flash.LAUNCHES.clear()
+        run = {"losses": [], "grad_norms": [], "step_seconds": [],
+               "grad_peak_bytes": [], "step_peak_bytes": []}
+        lm.set_remat_policy(policy)
+        try:
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, grads = _lm_grads(torch, optim, lm, cfg, params, batch)
+                # the allocator counts on the host as work is queued
+                run["grad_peak_bytes"].append(
+                    torch.cuda.max_memory_allocated())
+                clipped, norm = optim.clip_by_global_norm(grads,
+                                                          LM_TRAIN_CLIP)
+                del grads
+                params, state = optim.adam_update(clipped, state, params,
+                                                  lr=LM_TRAIN_LR)
+                del clipped
+                run["losses"].append(float(loss))  # the step has ended
+                run["grad_norms"].append(float(norm))
+                run["step_seconds"].append(time.perf_counter() - t0)
+                run["step_peak_bytes"].append(
+                    torch.cuda.max_memory_allocated())
+        finally:
+            lm.set_remat_policy(None)
+        assert not layers.ROUTES and not flash.LAUNCHES, (
+            layers.ROUTES, flash.LAUNCHES)
+        del params, state
+        run["warm_step_seconds"] = float(np.median(run["step_seconds"][1:]))
+        run["grad_peak_bytes_max"] = max(run["grad_peak_bytes"])
+        run["step_peak_bytes_max"] = max(run["step_peak_bytes"])
+        runs[str(policy)] = run
+    torch.cuda.empty_cache()
+    off, on = runs["None"], runs[LM_REMAT_POLICY]
+    assert all(math.isfinite(x) for x in off["losses"] + off["grad_norms"])
+    ln_v = math.log(cfg.vocab_size)
+    assert abs(off["losses"][0] - ln_v) < 2.0, (off["losses"][0], ln_v)
+    same = (on["losses"] == off["losses"]
+            and on["grad_norms"] == off["grad_norms"])
+    assert same, ("remat policy: losses or gradient norms differ", off, on)
+    width = 2 * cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+        + cfg.ssm_heads
+    saved = cfg.num_layers * b * s * width * 2  # the kept products, bf16
+    out = {"arch": LM_REMAT_ARCH, **LM_REMAT, "policy": LM_REMAT_POLICY,
+           "num_layers": cfg.num_layers, "in_proj_width": width,
+           "params": cfg.param_count(), "card": smi, "runs": runs,
+           "kept_bytes": saved, "bitwise": same,
+           "grad_peak_rise_bytes": (on["grad_peak_bytes_max"]
+                                    - off["grad_peak_bytes_max"]),
+           "step_peak_rise_bytes": (on["step_peak_bytes_max"]
+                                    - off["step_peak_bytes_max"])}
+    gib = 2.0 ** 30
+    for name, run in runs.items():
+        say(f"[lm train] (e) {LM_REMAT_ARCH} policy {name}: "
+            f"{cfg.num_layers} layers, in-projection {width}, batch {b}, "
+            f"seq {s}, bf16, remat: losses {run['losses']}, grad norms "
+            f"{run['grad_norms']}; step seconds {run['step_seconds']}, "
+            f"warm {run['warm_step_seconds']:.4f}s; gradient peak "
+            f"{run['grad_peak_bytes_max'] / gib:.3f} GiB, step peak "
+            f"{run['step_peak_bytes_max'] / gib:.3f} GiB; {smi}")
+    say(f"[lm train] (e) {LM_REMAT_POLICY} against None: losses and "
+        f"gradient norms bit for bit; gradient peak "
+        f"{out['grad_peak_rise_bytes'] / gib:+.3f} GiB, step peak "
+        f"{out['step_peak_rise_bytes'] / gib:+.3f} GiB (the kept products "
+        f"{saved / gib:.3f} GiB); warm step {on['warm_step_seconds']:.4f}s "
+        f"against {off['warm_step_seconds']:.4f}s; {smi}")
+    return out
+
+
+def _mm_counter(torch):
+    """A dispatch mode counting the `aten.mm` calls made under it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class MmCount(TorchDispatchMode):
+        mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                self.mm += 1
+            return func(*args, **(kwargs or {}))
+
+    return MmCount()
+
+
+def lm_remat_cut(torch, optim, lm, layers, flash) -> dict:
+    """(f): LM_REMAT_CUT_ARCH at full width cut to LM_REMAT_CUT's depth,
+    one step's gradients on the kernel route with the policy off and then
+    on: every leaf bit for bit, the flash forward and backward launches
+    counted from 0 for each and equal (under remat the forward runs twice
+    a layer, its recompute included), and the backward one `aten.mm`
+    short a block under the policy (every hymba block has an SSM)."""
+    from repro_torch.configs.base import get_config
+
+    full = get_config(LM_REMAT_CUT_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_REMAT_CUT["num_layers"])
+    b, s, n = LM_REMAT_CUT["batch"], LM_REMAT_CUT["seq"], cfg.num_layers
+    dev = LM_TRAIN_DEVICE
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                            dev)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s)), device=dev)}
+    key = (b * cfg.num_heads, s, s, cfg.resolved_head_dim, "bfloat16", True)
+    got = {}
+    for policy in (None, LM_REMAT_POLICY):
+        flash.LAUNCHES.clear()
+        flash.BWD_LAUNCHES.clear()
+        layers.ROUTES.clear()
+        count = _mm_counter(torch)
+        lm.set_remat_policy(policy)
+        try:
+            loss, grads = _lm_grads(torch, optim, lm, cfg, params, batch,
+                                    backward_mode=count)
+        finally:
+            lm.set_remat_policy(None)
+        launches = {"flash": dict(flash.LAUNCHES),
+                    "flash_bwd": dict(flash.BWD_LAUNCHES)}
+        assert launches == {"flash": {key: 2 * n}, "flash_bwd": {key: n}}, (
+            policy, launches)
+        assert dict(layers.ROUTES) == {"flash": 2 * n}, layers.ROUTES
+        got[str(policy)] = (loss, grads, launches, count.mm)
+    off, on = got["None"], got[LM_REMAT_POLICY]
+    same = torch.equal(off[0], on[0]) and all(
+        torch.equal(x, y) for x, y in zip(optim.leaves(off[1]),
+                                          optim.leaves(on[1])))
+    assert same, "remat policy: hymba's cut gradients differ"
+    assert off[2] == on[2], (off[2], on[2])
+    assert off[3] - on[3] == n, ("backward mm", off[3], on[3])
+    out = {"arch": LM_REMAT_CUT_ARCH, **LM_REMAT_CUT,
+           "loss": float(off[0]), "bitwise": same,
+           "launches": {k: {str(kk): v for kk, v in t.items()}
+                        for k, t in off[2].items()},
+           "backward_mm": {"None": off[3], LM_REMAT_POLICY: on[3]}}
+    say(f"[lm train] (f) {LM_REMAT_CUT_ARCH} full width, {n} of "
+        f"{full.num_layers} layers, "
+        f"batch {b}, seq {s}, kernel route: loss {out['loss']:.6f}; policy "
+        f"None and {LM_REMAT_POLICY}: every leaf bit for bit, launches "
+        f"{off[2]} both; backward mm {off[3]} -> {on[3]}")
+    del params, got, off, on
+    torch.cuda.empty_cache()
+    return out
+
+
 def _bwd_entry(key, row, launches) -> dict:
     bh, sq, skv, d, dtype, causal = key
     span = f"S={sq}" if causal and sq == skv else f"Sq={sq},Skv={skv}"
@@ -5022,7 +5223,9 @@ def phase_lm_train(torch, flash, smi) -> tuple[list, dict]:
     autograd, `optim.clip_by_global_norm` and `optim.adam_update`, the
     launches and routes counted; (c) the kernel route's gradients against
     the plain route's at the cut; (d) a step's gradients repeat bit for
-    bit. Returns (the kernels line's entries, results)."""
+    bit; (e) the remat policy at mamba2-370m's full width and depth
+    (`lm_remat_run`); (f) the policy on hymba's kernel route at a cut
+    (`lm_remat_cut`). Returns (the kernels line's entries, results)."""
     from repro_torch import optim
     from repro_torch.configs.base import get_config
     from repro_torch.models import layers, lm
@@ -5041,6 +5244,10 @@ def phase_lm_train(torch, flash, smi) -> tuple[list, dict]:
     results["cut"] = lm_train_cut(torch, optim, lm, layers, flash, cfg,
                                   fails)
     assert not fails, "phase 17: " + "; ".join(fails)
+    t_remat = time.perf_counter()
+    results["remat"] = lm_remat_run(torch, optim, lm, layers, flash, smi)
+    results["remat_cut"] = lm_remat_cut(torch, optim, lm, layers, flash)
+    results["remat_seconds"] = time.perf_counter() - t_remat
     # launches: the training run's (bf16) and the cut's fp32 gradient's
     cut32 = results["cut"]["fp32"]["launches"]
     entries = [_bwd_entry(k, r, run["launches"]["flash_bwd"].get(str(k), 0)
@@ -5054,7 +5261,8 @@ def phase_lm_train(torch, flash, smi) -> tuple[list, dict]:
                                           launches[str(key)]))
     results["phase_seconds"] = time.perf_counter() - t_phase
     say(f"[lm train] phase 17 {results['phase_seconds']:.1f}s (kernel "
-        f"checks {t_kernels:.1f}s)")
+        f"checks {t_kernels:.1f}s, remat policy "
+        f"{results['remat_seconds']:.1f}s)")
     return entries, results
 
 

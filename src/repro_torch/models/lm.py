@@ -28,18 +28,24 @@ the flash route's attention keeps only (out, lse) and runs the backward
 kernel (kernels/ops.flash_attention), and with `remat=True` (the
 default, as the reference's) each decoder block is recomputed in the
 backward under `torch.utils.checkpoint`, as the reference's `jax.checkpoint`
-does: only the blocks' inputs are kept between the passes.
+does: only the blocks' inputs are kept between the passes. Under a policy
+set by `set_remat_policy` (the reference's `save_only_these_names`) the
+products tagged with its name are kept too; the port tags one, the SSM
+in-projection ("ssm_proj"), so its recompute skips that matmul.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -54,14 +60,48 @@ MOE_CHUNK = 1024
 DEC_POS_ROWS = 65536
 
 
+# The selective-remat policy: None recomputes each block whole under
+# `loss_fn(remat=True)`, keeping only its input; a name also keeps the
+# products tagged with it ("ssm_proj": the SSM in-projection, the dominant
+# matmul of an SSM block), so the recompute skips them. Values do not
+# change; memory and recompute time do.
+_REMAT_POLICY: Optional[str] = None
+# the name of the tagged product being computed (`_tagged`). A module
+# value, not a thread's: on the card autograd runs the recompute on its
+# own thread, and a policy may read the tag there
+_TAG: Optional[str] = None
+# the aten op that computes a tagged product: `x @ w` with x [B, S, d]
+# dispatches view -> mm -> _unsafe_view, and only mm's output is kept
+_TAGGED_OP = torch.ops.aten.mm.default
+
+
 def set_remat_policy(name: Optional[str]) -> None:
-    """The reference's remat policy hook. None, the full recompute of each
-    block under `loss_fn(remat=True)`, is the only policy: the reference's
-    "ssm_proj" (also keep the SSM in-projection's output) would change
-    memory, not values, and is not ported."""
-    if name is not None:
-        raise ValueError(f"remat policy {name!r}: the port recomputes whole "
-                         "blocks (None) only")
+    """The reference's remat policy hook: any name is stored, as the
+    reference stores it. Read when `loss_fn(remat=True)` runs."""
+    global _REMAT_POLICY
+    _REMAT_POLICY = name
+
+
+@contextlib.contextmanager
+def _tagged(name: str):
+    """Tags the products computed inside with `name`, the twin of the
+    reference's `checkpoint_name`; changes no value."""
+    global _TAG
+    outer, _TAG = _TAG, name
+    try:
+        yield
+    finally:
+        _TAG = outer
+
+
+def _save_only(name: str):
+    """A selective-checkpoint policy keeping the products tagged `name`
+    and recomputing every other op (`save_only_these_names`)."""
+    def policy(ctx, op, *args, **kwargs):
+        if _TAG == name and op is _TAGGED_OP:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
 
 
 def set_activation_sharding(dp, sp=None, sp_divisor: int = 1,
@@ -394,7 +434,8 @@ def _ssm_forward(cfg: ArchConfig, p, x, *, cache=None):
     din = cfg.ssm_inner
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     pdim = cfg.ssm_head_dim
-    proj = x @ p["in_proj"]  # [b, s, 2*din + 2*g*n + h]
+    with _tagged("ssm_proj"):  # a policy may keep it for the recompute
+        proj = x @ p["in_proj"]  # [b, s, 2*din + 2*g*n + h]
     z, xb, dt_raw = proj.split([din, din + 2 * g * n, h], dim=-1)
     A = -torch.exp(p["a_log"])
     dt = _softplus(dt_raw.float() + p["dt_bias"])  # [b, s, h]
@@ -495,7 +536,12 @@ def _run_group(cfg: ArchConfig, stacked, x, layers, *, caches, window,
     the cache's `cross_k` / `cross_v`) or, at a decode step, from the
     cache. With `remat` (no caches) each block runs under a non-reentrant
     `checkpoint`: its activations are recomputed in the backward, as the
-    reference's `jax.checkpoint` of the block. Returns (x, summed aux)."""
+    reference's `jax.checkpoint` of the block, all but the products a
+    remat policy keeps. Returns (x, summed aux)."""
+    policy = {}
+    if _REMAT_POLICY is not None:
+        policy["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_only(_REMAT_POLICY))
     aux_sum = 0.0
     for i in layers:
         p = _layer_of(stacked, i)
@@ -518,7 +564,8 @@ def _run_group(cfg: ArchConfig, stacked, x, layers, *, caches, window,
                            if not k.startswith("cross_")} or None
         if remat and caches is None:
             x, aux = checkpoint(block_forward, cfg, p, x, window=window,
-                                cross_kv=cross_kv, use_reentrant=False, **kw)
+                                cross_kv=cross_kv, use_reentrant=False,
+                                **policy, **kw)
         else:
             x, aux = block_forward(cfg, p, x, window=window,
                                    cache=block_cache, cross_kv=cross_kv, **kw)

@@ -595,11 +595,26 @@ def test_remat_gradients_equal_no_remat_bitwise(arch):
 
 
 def test_remat_policy_hook():
-    """`set_remat_policy(None)` is the reference's full recompute; its
-    "ssm_proj" policy is refused."""
-    lm.set_remat_policy(None)
-    with pytest.raises(ValueError, match="ssm_proj"):
-        lm.set_remat_policy("ssm_proj")
+    """`set_remat_policy` accepts the reference's "ssm_proj" and any other
+    name, as the reference's stores any; None, the reference's full
+    recompute, restores the plain path (tests/test_torch_remat_policy.py
+    holds the policy's gradients)."""
+    arch = "mamba2-370m"
+    ref = _reference(arch)
+    _, tc = _configs(arch, "float32")
+    _, tb = _batch(tc, ref["tokens"], "float32")
+    params = lm.params_from_reference(ref["params"]["float32"])
+    loss_n, without = _port(arch, "float32", True)  # under None
+    try:
+        for name in ("ssm_proj", "no_such_tag"):
+            lm.set_remat_policy(name)
+            assert lm._REMAT_POLICY == name
+            loss, got = _grads(tc, params, tb, True)
+            assert torch.equal(loss, loss_n)
+            assert all(torch.equal(g, without[k]) for k, g in got.items())
+    finally:
+        lm.set_remat_policy(None)
+    assert lm._REMAT_POLICY is None
 
 
 # ---------------------------------------------------------------------------
