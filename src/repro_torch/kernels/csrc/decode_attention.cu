@@ -40,7 +40,7 @@
 //   -1e30, l = 0, acc = 0), which the merge weighs by exactly 0.
 // - Stream K and V without registers. A producer warp's lane 0 issues one
 //   1-D cp.async.bulk for each K tile and one for each V tile (TILE rows of
-//   one bh are contiguous: TILE * D * sizeof(T) bytes, 16 KB; the ragged
+//   one bh are contiguous: TILE * D * sizeof(T) bytes, <= 16 KB; the ragged
 //   last tile copies only its rows below n) into a ring of `stages` stages
 //   (3 at the plan's sizes: 96 KB, two blocks an SM, up to 192 KB in
 //   flight on an SM), each with a full mbarrier (the copies' transaction
@@ -60,6 +60,12 @@
 //   bh's splits in split order and writes acc / max(l, 1e-30). With
 //   n_split == 1 the first kernel writes the output itself. No float
 //   atomics: runs repeat bit for bit.
+//
+// Head dims. d is 64, 80 or 128. d = 80 (h2o-danube) computes on the D =
+// 128 lane layout (a lane's chunks as at 128) over rows of 80: a lane's
+// chunks past column 80 load as zeros and are not stored, and its tile is
+// the multiple of 16 rows (one per group state) nearest below 16 KB of K:
+// 96 slots in bf16, 48 in fp32.
 //
 // Plain C entry points, bound from Python with ctypes
 // (kernels/decode_attention.py). Build:
@@ -83,9 +89,14 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kMaxSplit = 1024;
 constexpr int kTileBytes = 16384;   // a K (or V) tile
 
-// cache slots a tile holds: 64 at D 128 bf16, 32 at D 128 fp32
+// cache slots a tile holds: at most 16 KB of K, a multiple of kStates rows
+// (64 at D 128 bf16, 32 at D 128 fp32, 96 at D 80 bf16)
 template <typename T, int D>
-constexpr int kTile = kTileBytes / (D * (int)sizeof(T));
+constexpr int kTile = kTileBytes / (D * (int)sizeof(T)) / kStates * kStates;
+
+// the lane layout's head dim: D, or 128 for a row of 80
+template <int D>
+constexpr int kLanesD = D == 80 ? 128 : D;
 
 // A block's dynamic shared memory (mirrored by
 // kernels/decode_attention.py:_smem_bytes): the K ring, the V ring, the
@@ -182,17 +193,19 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              T* __restrict__ out, float* __restrict__ part, int s,
              int n_split, int stages, float scale) {
   constexpr int TILE = kTile<T, D>;
+  constexpr int kStage = TILE * D * (int)sizeof(T);  // bytes of a K tile
   constexpr int PER = 16 / (int)sizeof(T);  // elements in 16 bytes
-  constexpr int NV = D / 8 / PER;           // 16-byte chunks a lane a row
-  constexpr int E = D / 8;                  // columns a lane owns
+  constexpr int NV = kLanesD<D> / 8 / PER;  // 16-byte chunks a lane a row
+  constexpr int E = kLanesD<D> / 8;         // columns a lane owns
   constexpr int kRows = TILE / kConsumers;  // a consumer warp's rows a tile
   constexpr int G = kRows / kGroups;        // a group's rows a tile
-  static_assert(G >= 1 && NV >= 1, "tile or head dim too small");
+  static_assert(G >= 1 && NV >= 1 && kRows % kGroups == 0,
+                "tile or head dim too small");
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ks = smem;
-  unsigned char* vs = smem + stages * kTileBytes;
-  float* sm_m = reinterpret_cast<float*>(smem + 2 * stages * kTileBytes);
+  unsigned char* vs = smem + stages * kStage;
+  float* sm_m = reinterpret_cast<float*>(smem + 2 * stages * kStage);
   float* sm_l = sm_m + kStates;
   float* sm_acc = sm_l + kStates;
   const uint32_t full = smem_u32(sm_acc + kStates * D);
@@ -227,10 +240,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
             (uint32_t)min(TILE, n - slot0) * D * (uint32_t)sizeof(T);
         const int64_t off = (bh * s + slot0) * D;
         mbar_expect_tx(full + 8 * st, 2 * bytes);
-        bulk_load(smem_u32(ks + st * kTileBytes), k + off, bytes,
-                  full + 8 * st);
-        bulk_load(smem_u32(vs + st * kTileBytes), v + off, bytes,
-                  full + 8 * st);
+        bulk_load(smem_u32(ks + st * kStage), k + off, bytes, full + 8 * st);
+        bulk_load(smem_u32(vs + st * kStage), v + off, bytes, full + 8 * st);
       }
     }
     return;
@@ -238,12 +249,20 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // ---- consumers: group g of warp w takes rows w * kRows + i * 4 + g of a
   // tile (i < G); lane j of the group the 16-byte chunks c * 128 + j * 16
-  // of a row (c < NV), i.e. columns (c * 128 + j * 16) / sizeof(T) + e
+  // of a row (c < NV), i.e. columns (c * 128 + j * 16) / sizeof(T) + e;
+  // a chunk past the row's D columns (D 80) is zeros
   const int g = lane / 8, jl = lane % 8;
+  auto in_row = [&](int c) { return (c * 8 + jl) * PER < D; };
   float qv[E], acc[E];
 #pragma unroll
-  for (int c = 0; c < NV; ++c)
-    unpack16(q + bh * D + c * 8 * PER + jl * PER, qv + c * PER);
+  for (int c = 0; c < NV; ++c) {
+    if (in_row(c)) {
+      unpack16(q + bh * D + c * 8 * PER + jl * PER, qv + c * PER);
+    } else {
+#pragma unroll
+      for (int e = 0; e < PER; ++e) qv[c * PER + e] = 0.f;
+    }
+  }
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
   float m = kMasked, l = 0.f;
@@ -252,8 +271,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int st = t % stages;
     mbar_wait(full + 8 * st, (t / stages) & 1);
     const int rows = min(TILE, n - (t_lo + t) * TILE);
-    const T* kt = reinterpret_cast<const T*>(ks + st * kTileBytes);
-    const T* vt = reinterpret_cast<const T*>(vs + st * kTileBytes);
+    const T* kt = reinterpret_cast<const T*>(ks + st * kStage);
+    const T* vt = reinterpret_cast<const T*>(vs + st * kStage);
     float sc[G];
 #pragma unroll
     for (int i = 0; i < G; ++i) {
@@ -262,6 +281,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (r < rows) {
 #pragma unroll
         for (int c = 0; c < NV; ++c) {
+          if (!in_row(c)) continue;
           float x[PER];
           unpack16(kt + r * D + c * 8 * PER + jl * PER, x);
 #pragma unroll
@@ -295,6 +315,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (r < rows) {
 #pragma unroll
         for (int c = 0; c < NV; ++c) {
+          if (!in_row(c)) continue;
           float x[PER];
           unpack16(vt + r * D + c * 8 * PER + jl * PER, x);
 #pragma unroll
@@ -314,10 +335,12 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sm_l[state] = l;
   }
 #pragma unroll
-  for (int c = 0; c < NV; ++c)
+  for (int c = 0; c < NV; ++c) {
+    if (!in_row(c)) continue;
 #pragma unroll
     for (int e = 0; e < PER; ++e)
       sm_acc[state * D + c * 8 * PER + jl * PER + e] = acc[c * PER + e];
+  }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
   for (int d = threadIdx.x; d < D; d += kConsumers * 32) {
     float big = sm_m[0];
@@ -398,8 +421,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, out [bh, d]; k, v [bh, s, d],
 // contiguous, 16-byte aligned; valid_len one int32 on the device; d in
-// {64, 128}. The launch plan (kernels/decode_attention.py:_launch_plan):
-// tile the kernel's kTile slots (16 KB of K), stages in [1, 8], n_split
+// {64, 80, 128}. The launch plan (kernels/decode_attention.py:_launch_plan):
+// tile the kernel's kTile slots (at most 16 KB of K), stages in [1, 8], n_split
 // >= 1 blocks a bh, smem the dynamic shared memory bytes (checked against
 // the layout);
 // workspace bh * n_split * (d + 2) floats on the device when n_split > 1.
@@ -419,8 +442,10 @@ int decode_attention(const void* q, const void* k, const void* v,
                bh, (int)s,  n_split, stages,   smem,  scale,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0 && d == 64) return (int)launch<float, 64>(c, tile);
+  if (dtype == 0 && d == 80) return (int)launch<float, 80>(c, tile);
   if (dtype == 0 && d == 128) return (int)launch<float, 128>(c, tile);
   if (dtype == 1 && d == 64) return (int)launch<__nv_bfloat16, 64>(c, tile);
+  if (dtype == 1 && d == 80) return (int)launch<__nv_bfloat16, 80>(c, tile);
   if (dtype == 1 && d == 128)
     return (int)launch<__nv_bfloat16, 128>(c, tile);
   return (int)cudaErrorInvalidValue;

@@ -11,6 +11,17 @@
 // of the last tile is masked (keys past Skv get probability 0, rows past Sq
 // are not stored), where the TPU kernel asserts divisibility. The wrapper
 // only passes causal calls with Sq == Skv (kernels/flash_attention.py).
+// A causal call may also take a band: with `window` W > 0 a score is kept
+// only where 0 <= q_idx - k_idx < W (the reference's mask,
+// src/repro/models/layers.py:_block_mask), and the key tiles wholly below
+// the band of the q tile's first row are not visited: every row keeps its
+// diagonal key, so a skipped tile would add exp(-1e30 - m) = 0 anyway.
+// The head dim d is 64, 80 or 128; d = 80 runs through the D = 128 code
+// with the true d as the row stride: the bf16 tensor maps zero-fill
+// columns 80-127 (a map of inner dim 80 read in 64-column boxes), the fp32
+// loads are predicated on d, the zero columns add nothing to q.k or to P V,
+// and only d columns are stored (1.6x the products a dedicated D = 80 tile
+// would need).
 // With a non-null `lse` the kernel also stores each row's fp32 log-sum-exp
 // of its scaled scores, m + log(max(l, 1e-30)) (the reference's `lse_blk`,
 // src/repro/models/layers.py:_flash_fwd_inner), which the backward kernel
@@ -23,7 +34,8 @@
 // row's running max, normaliser and output accumulator in registers. On the
 // causal path the key tiles wholly above the block's last row are skipped:
 // every score in them is masked, and a masked score adds exactly 0 once the
-// first tile has given the row a real max (key 0 is never masked). No
+// first tile has given the row a real max (every row keeps its diagonal
+// key). No
 // atomics: each output element has one writer, the key tiles are folded in
 // a fixed order, and runs repeat bit for bit.
 //
@@ -113,27 +125,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + rows) of a [s, D] matrix into dst[rows][stride], 16 B a
-// copy; rows past s are zeros
-template <int D, int kRows, int kStride>
+// rows [r0, r0 + rows) of a [s, d] matrix into dst[rows][stride], 16 B a
+// copy; rows past s and (kNarrow: d < D) columns past d are zeros
+template <int D, bool kNarrow, int kRows, int kStride>
 __device__ __forceinline__ void stage_rows(float (*dst)[kStride],
                                            const float* src, int r0, int s,
-                                           int tid) {
+                                           int d, int tid) {
   constexpr int kChunks = D / 4;
+  const int ld = kNarrow ? d : D;
 #pragma unroll
   for (int idx = tid; idx < kRows * kChunks; idx += kF32Threads) {
     const int r = idx / kChunks, c = (idx % kChunks) * 4;
-    const bool valid = r0 + r < s;
-    cp_async16(&dst[r][c], src + (int64_t)(valid ? r0 + r : 0) * D + c, valid);
+    const bool valid = r0 + r < s && (!kNarrow || c < ld);
+    cp_async16(&dst[r][c], src + (int64_t)(valid ? r0 + r : 0) * ld +
+                               (valid ? c : 0), valid);
   }
 }
 
-template <int D>
+// kNarrow: the true head dim d (80) is below D (128); its columns past d
+// are loaded as zeros and not stored. `band`: the causal band W, or 2^30
+// (none).
+template <int D, bool kNarrow>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int sq, int skv, float scale,
-                 int causal) {
+                 float* __restrict__ lse, int sq, int skv, int d,
+                 float scale, int causal, int band) {
   constexpr int kPad = F32Tiles<D>::kPad;
   constexpr int kGroups = D / 64;  // float4 column groups of a PV thread
   extern __shared__ __align__(16) unsigned char smem[];
@@ -144,16 +161,22 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kg = h >> 1, dh = h & 1;  // PV: columns g * 64 + h * 4 + 0..3
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BlockQ;
   const int64_t bh = blockIdx.x;
-  const float* qb = q + bh * sq * D;
-  const float* kb = k + bh * skv * D;
-  const float* vb = v + bh * skv * D;
+  const int ld = kNarrow ? d : D;  // the row stride
+  const float* qb = q + bh * sq * ld;
+  const float* kb = k + bh * skv * ld;
+  const float* vb = v + bh * skv * ld;
 
+  // the key tiles [t0, n_tiles): causal stops at the block's last row and,
+  // with a band, starts at the tile of its first row's first key
   const int kv_end = causal ? min(skv, q0 + kF32BlockQ) : skv;
+  const int t0 = causal ? max(0, q0 - band + 1) / kF32BlockK : 0;
   const int n_tiles = (kv_end + kF32BlockK - 1) / kF32BlockK;
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
-  stage_rows<D, kF32BlockQ, kPad>(sm.q, qb, q0, sq, tid);
-  stage_rows<D, kF32BlockK, kPad>(sm.k[0], kb, 0, skv, tid);
-  stage_rows<D, kF32BlockK, D>(sm.v[0], vb, 0, skv, tid);
+  stage_rows<D, kNarrow, kF32BlockQ, kPad>(sm.q, qb, q0, sq, d, tid);
+  stage_rows<D, kNarrow, kF32BlockK, kPad>(sm.k[0], kb, t0 * kF32BlockK, skv,
+                                           d, tid);
+  stage_rows<D, kNarrow, kF32BlockK, D>(sm.v[0], vb, t0 * kF32BlockK, skv, d,
+                                        tid);
   cp_async_commit();
 
   float m[8], l[8], acc[8][4 * kGroups];
@@ -165,13 +188,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 4 * kGroups; ++c) acc[i][c] = 0.f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1, k0 = t * kF32BlockK;
+  for (int t = t0; t < n_tiles; ++t) {
+    const int buf = (t - t0) & 1, k0 = t * kF32BlockK;
     if (t + 1 < n_tiles) {  // the buffer was released at the end of t - 1
-      stage_rows<D, kF32BlockK, kPad>(sm.k[buf ^ 1], kb, k0 + kF32BlockK,
-                                      skv, tid);
-      stage_rows<D, kF32BlockK, D>(sm.v[buf ^ 1], vb, k0 + kF32BlockK, skv,
-                                   tid);
+      stage_rows<D, kNarrow, kF32BlockK, kPad>(sm.k[buf ^ 1], kb,
+                                               k0 + kF32BlockK, skv, d, tid);
+      stage_rows<D, kNarrow, kF32BlockK, D>(sm.v[buf ^ 1], vb,
+                                            k0 + kF32BlockK, skv, d, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -209,10 +232,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // online softmax in log2 units (x = q.k * scale * log2(e)); a row's 64
     // keys sit on the 8 lane pairs of its half warp (both lanes of a pair
     // hold the same values). Masked scores (compared on the diagonal and
-    // ragged tiles only) get probability 0, as the TPU kernel's -1e30 gives
-    // once a row has a real max (key 0 is never masked).
+    // ragged tiles only, and on the band's lower edge) get probability 0,
+    // as the TPU kernel's -1e30 gives once a row has a real max (every row
+    // keeps its diagonal key).
+    const int row0 = q0 + rg * 8;
     const bool edge = k0 + kF32BlockK > skv ||
-                      (causal && k0 + kF32BlockK - 1 > q0 + rg * 8);
+                      (causal && (k0 + kF32BlockK - 1 > row0 ||
+                                  k0 + band <= row0 + 7));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float mx = -INFINITY;
@@ -221,7 +247,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         s[i][j] += __shfl_xor_sync(kFull, s[i][j], 1);
         if (edge) {
           const int key = k0 + kg + 8 * j;
-          if (key >= skv || (causal && key > q0 + rg * 8 + i))
+          if (key >= skv ||
+              (causal && (key > row0 + i || key + band <= row0 + i)))
             s[i][j] = -INFINITY;
         }
         mx = fmaxf(mx, s[i][j]);
@@ -280,12 +307,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);  // a divide, as the TPU kernel
     // m is in log2 units; every lane of the half warp holds the row's m, l
     if (lse != nullptr && h == 0) lse[bh * sq + row] = m[i] * kLn2 + logf(den);
-    float* orow = out + (bh * sq + row) * D;
+    float* orow = out + (bh * sq + row) * ld;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
-      *reinterpret_cast<float4*>(orow + g * 64 + h * 4) = make_float4(
-          acc[i][g * 4 + 0] / den, acc[i][g * 4 + 1] / den,
-          acc[i][g * 4 + 2] / den, acc[i][g * 4 + 3] / den);
+      if (!kNarrow || g * 64 + h * 4 < ld)
+        *reinterpret_cast<float4*>(orow + g * 64 + h * 4) = make_float4(
+            acc[i][g * 4 + 0] / den, acc[i][g * 4 + 1] / den,
+            acc[i][g * 4 + 2] / den, acc[i][g * 4 + 3] / den);
   }
 }
 
@@ -507,12 +535,13 @@ __device__ __forceinline__ void wgmma_wait() {
 // returns the rescale factors of the accumulator in corr and the
 // unnormalised probabilities, rounded to bf16, as register A fragments.
 // Masked scores (only compared when `edge`) get probability 0, as the
-// TPU kernel's -1e30 gives once a row has a real max (key 0 is never
-// masked, and the first tile holds it).
+// TPU kernel's -1e30 gives once a row has a real max (every row keeps its
+// diagonal key; a tile all of whose keys a row masks leaves its m, l and
+// accumulator as they were).
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kBfBlockK / 2], uint32_t (&pa)[kBfBlockK / 16][4],
     float (&m)[2], float (&l)[2], float (&corr)[2], float sl2, bool edge,
-    int k0, int skv, int causal, int r0, int t) {
+    int k0, int skv, int causal, int band, int r0, int t) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int n = 0; n < kBfBlockK / 8; ++n) {
@@ -520,7 +549,8 @@ __device__ __forceinline__ void softmax_tile(
     for (int e = 0; e < 4; ++e) {
       if (edge) {
         const int key = k0 + 8 * n + 2 * t + (e & 1);
-        if (key >= skv || (causal && key > r0 + 8 * (e >> 1)))
+        const int row = r0 + 8 * (e >> 1);
+        if (key >= skv || (causal && (key > row || key + band <= row)))
           s[4 * n + e] = -INFINITY;
       }
       mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
@@ -570,7 +600,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                  int sq, int skv, float scale, int causal) {
+                  int sq, int skv, int d, float scale, int causal,
+                  int band) {
   using L = BfLayout<D>;
   constexpr int kChunkQ = kBfBlockQ * 128;  // bytes of a 64-column box
   constexpr int kChunkK = kBfBlockK * 128;
@@ -585,8 +616,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x, wg = tid / 128;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBfBlockQ;
   const int bh = blockIdx.x;
+  // the key tiles [j0, j0 + n_tiles): causal stops at the block's last row
+  // and, with a band, starts at the tile of its first row's first key
   const int kv_end = causal ? min(skv, q0 + kBfBlockQ) : skv;
-  const int n_tiles = (kv_end + kBfBlockK - 1) / kBfBlockK;
+  const int j0 = causal ? max(0, q0 - band + 1) / kBfBlockK : 0;
+  const int n_tiles = (kv_end + kBfBlockK - 1) / kBfBlockK - j0;
 
   if (tid == 0) {
     for (int st = 0; st < kBfStages; ++st) {
@@ -613,12 +647,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_expect_tx(kfull + 8 * st, L::kTileBytes);
         for (int c = 0; c < D / kBox; ++c)
           tma_load_3d(ks + st * L::kTileBytes + c * kChunkK, &kmap,
-                      kfull + 8 * st, c * kBox, j * kBfBlockK, bh);
+                      kfull + 8 * st, c * kBox, (j0 + j) * kBfBlockK, bh);
         if (round > 0) mbar_wait(vempty + 8 * st, (round - 1) & 1);
         mbar_expect_tx(vfull + 8 * st, L::kTileBytes);
         for (int c = 0; c < D / kBox; ++c)
           tma_load_3d(vs + st * L::kTileBytes + c * kChunkK, &vmap,
-                      vfull + 8 * st, c * kBox, j * kBfBlockK, bh);
+                      vfull + 8 * st, c * kBox, (j0 + j) * kBfBlockK, bh);
       }
     }
     return;
@@ -654,7 +688,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint64_t vdesc = smem_desc(vs, kChunkK, 1024);
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kBfStages, parity = (j / kBfStages) & 1;
-    const int k0 = j * kBfBlockK;
+    const int k0 = (j0 + j) * kBfBlockK;
     // S = Q K^T: 64 rows x 128 keys, k-steps of 16 columns of D (32 B a
     // k-step inside a 64-column box)
     mbar_wait(kfull + 8 * st, parity);
@@ -673,10 +707,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     __syncwarp();
     if (lane == 0) mbar_arrive(kempty + 8 * st);  // this warp is done with K
 
-    const bool edge =  // the diagonal and ragged tiles
-        k0 + kBfBlockK > skv || (causal && k0 + kBfBlockK - 1 > row_lo);
+    const bool edge =  // the diagonal, ragged and band-edge tiles
+        k0 + kBfBlockK > skv ||
+        (causal && (k0 + kBfBlockK - 1 > row_lo || k0 + band <= row_lo + 63));
     float corr[2];
-    softmax_tile(s, pa, m, l, corr, sl2, edge, k0, skv, causal, r0, t);
+    softmax_tile(s, pa, m, l, corr, sl2, edge, k0, skv, causal, band, r0, t);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       o[4 * n + 0] *= corr[0];
@@ -710,33 +745,36 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (r0 < sq) lb[r0] = m[0] * kLn2 + logf(d0);
     if (r0 + 8 < sq) lb[r0 + 8] = m[1] * kLn2 + logf(d1);
   }
-  __nv_bfloat16* ob = out + (int64_t)bh * sq * D;
+  // d columns of a row of d (the columns past a narrow d are zeros)
+  __nv_bfloat16* ob = out + (int64_t)bh * sq * d;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * t;
+    if (c >= d) continue;
     if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)r0 * D + c) =
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)r0 * d + c) =
           pack_rn(o[4 * n + 0] / d0, o[4 * n + 1] / d0);
     if (r0 + 8 < sq)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)(r0 + 8) * D + c) =
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)(r0 + 8) * d + c) =
           pack_rn(o[4 * n + 2] / d1, o[4 * n + 3] / d1);
   }
 }
 
-template <int D>
+template <int D, bool kNarrow>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       void* lse, long long bh, int sq, int skv, float scale,
-                       int causal, cudaStream_t stream) {
+                       void* lse, long long bh, int sq, int skv, int d,
+                       float scale, int causal, int band,
+                       cudaStream_t stream) {
   const dim3 grid((unsigned)bh, (unsigned)((sq + kF32BlockQ - 1) / kF32BlockQ));
   const int smem = (int)sizeof(F32Tiles<D>);
-  auto kernel = flash_f32_kernel<D>;
+  auto kernel = flash_f32_kernel<D, kNarrow>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), sq, skv, scale, causal);
+      static_cast<float*>(lse), sq, skv, d, scale, causal, band);
   return cudaGetLastError();
 }
 
@@ -780,15 +818,18 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long bh, int s,
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// D: the kernel's head dim (64 or 128); d: the tensors' (d <= D; the maps
+// zero-fill columns d..D-1)
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
-                        void* lse, long long bh, int sq, int skv, float scale,
-                        int causal, cudaStream_t stream) {
+                        void* lse, long long bh, int sq, int skv, int d,
+                        float scale, int causal, int band,
+                        cudaStream_t stream) {
   static_assert(kBfBlockQ == 128 && kBfBlockK == 128, "one box shape");
   CUtensorMap qmap, kmap, vmap;
-  cudaError_t err = tensor_map(&qmap, q, bh, sq, D);
-  if (err == cudaSuccess) err = tensor_map(&kmap, k, bh, skv, D);
-  if (err == cudaSuccess) err = tensor_map(&vmap, v, bh, skv, D);
+  cudaError_t err = tensor_map(&qmap, q, bh, sq, d);
+  if (err == cudaSuccess) err = tensor_map(&kmap, k, bh, skv, d);
+  if (err == cudaSuccess) err = tensor_map(&vmap, v, bh, skv, d);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)bh, (unsigned)((sq + kBfBlockQ - 1) / kBfBlockQ));
   const int smem = BfLayout<D>::kAlloc;
@@ -798,7 +839,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kBfThreads, smem, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), sq, skv, scale, causal);
+      static_cast<float*>(lse), sq, skv, d, scale, causal, band);
   return cudaGetLastError();
 }
 
@@ -807,30 +848,37 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, out [bh, sq, d]; k, v [bh, skv, d],
-// contiguous, 16-byte aligned; d in {64, 128}; lse [bh, sq] float32 or
-// null (no store). Returns a cudaError_t.
+// contiguous, 16-byte aligned; d in {64, 80, 128}; lse [bh, sq] float32 or
+// null (no store); window: 0, or a causal call's band W > 0 (keeps
+// 0 <= q_idx - k_idx < W). Returns a cudaError_t.
 int flash_attention(const void* q, const void* k, const void* v, void* out,
                     void* lse, long long bh, long long sq, long long skv, int d,
-                    int dtype, int causal, float scale, void* stream) {
+                    int dtype, int causal, int window, float scale,
+                    void* stream) {
   const int block_q = dtype == 0 ? kF32BlockQ : kBfBlockQ;
   if (bh <= 0 || sq <= 0 || skv <= 0 || bh > 0x7fffffffLL ||
-      sq > 0x7fffffffLL || skv > 0x7fffffffLL ||
-      (sq + block_q - 1) / block_q > 65535)
+      sq > (1LL << 28) || skv > (1LL << 28) ||
+      (sq + block_q - 1) / block_q > 65535 || window < 0 ||
+      (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int isq = (int)sq, iskv = (int)skv;
+  const int band = window > 0 ? window : (1 << 30);  // 2^30: no band
   if (dtype == 0 && d == 64)
-    return (int)launch_f32<64>(q, k, v, out, lse, bh, isq, iskv, scale,
-                               causal, s);
+    return (int)launch_f32<64, false>(q, k, v, out, lse, bh, isq, iskv, d,
+                                      scale, causal, band, s);
+  if (dtype == 0 && d == 80)
+    return (int)launch_f32<128, true>(q, k, v, out, lse, bh, isq, iskv, d,
+                                      scale, causal, band, s);
   if (dtype == 0 && d == 128)
-    return (int)launch_f32<128>(q, k, v, out, lse, bh, isq, iskv, scale,
-                                causal, s);
+    return (int)launch_f32<128, false>(q, k, v, out, lse, bh, isq, iskv, d,
+                                       scale, causal, band, s);
   if (dtype == 1 && d == 64)
-    return (int)launch_bf16<64>(q, k, v, out, lse, bh, isq, iskv, scale,
-                                causal, s);
-  if (dtype == 1 && d == 128)
-    return (int)launch_bf16<128>(q, k, v, out, lse, bh, isq, iskv, scale,
-                                 causal, s);
+    return (int)launch_bf16<64>(q, k, v, out, lse, bh, isq, iskv, d, scale,
+                                causal, band, s);
+  if (dtype == 1 && (d == 80 || d == 128))
+    return (int)launch_bf16<128>(q, k, v, out, lse, bh, isq, iskv, d, scale,
+                                 causal, band, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,7 +16,14 @@
 // every product accumulated in fp32 and dq, dk, dv written in the inputs'
 // dtype (float32 or bfloat16). Causal calls have Sq == Skv (the wrapper
 // checks); full calls take any Sq and Skv, the ragged tails masked (keys
-// past Skv get P = 0, rows past Sq are zero and not stored).
+// past Skv get P = 0, rows past Sq are zero and not stored). A causal call
+// may take a band W > 0 (P kept where 0 <= q_idx - k_idx < W, the
+// reference's _block_mask): dK / dV stop their walk over q tiles at the
+// last row that sees the key tile, dQ starts its walk over key tiles at
+// the first row's first key, and only the tiles on the band's edge compare
+// indices. The head dim d is 64, 80 or 128: d = 80 runs the D = 128
+// kernels on tensor maps of inner dim 80, which zero-fill columns 80-127,
+// and stores d columns (the forward's scheme, csrc/flash_attention.cu).
 //
 // Three kernels, no atomics: each output element has one writer and every
 // sum is taken in a fixed order, so a run repeats bit for bit.
@@ -131,7 +138,15 @@
 // it is used (`lane_id`), dQ's rows' lse and delta are read from shared
 // memory at each tile, P^T is taken back from its fragments after dV
 // (neither is held through dP^T), and each role computes its tile range
-// after setmaxnreg.
+// after setmaxnreg. The row length (kLd: D, or 80 in D = 128) and the band
+// (kBand) are template parameters of the fp32 kernels: a runtime row
+// length in the epilogue, and the band's bounds held through the tile
+// loop, each made ptxas spill at D = 128, so the band-free kernels
+// compile as they did without a band, and dK / dV reads its band's row
+// end and width anew from shared memory at each tile. At D = 128 (kLd
+// 128) even that spilled (4-64 bytes in every form tried): the fp32
+// backward takes no band there, and the route sends such a call to the
+// plain math (models/layers.py attention_route; no model has one).
 //
 // Bound. Five products of 2 Sq Skv D operations a head (halved when
 // causal): at the qwen3-4b step 171.9 GFLOP, 0.174 ms at 989 TFLOP/s
@@ -164,32 +179,32 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// delta[row] = sum_d out[row, d] * dout[row, d] in fp32, one warp a row
-template <typename T, int D>
+// delta[row] = sum_c out[row, c] * dout[row, c] in fp32, one warp a row
+// of d
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-             float* __restrict__ delta, int64_t rows) {
+             float* __restrict__ delta, int64_t rows, int d) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   float acc = 0.f;
-#pragma unroll
-  for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f(out[row * D + c]), to_f(dout[row * D + c]), acc);
+  for (int c = lane; c < d; c += 32)
+    acc = fmaf(to_f(out[row * d + c]), to_f(dout[row * d + c]), acc);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int D>
+template <typename T>
 cudaError_t launch_delta(const void* out, const void* dout, void* delta,
-                         long long bh, int sq, cudaStream_t stream) {
+                         long long bh, int sq, int d, cudaStream_t stream) {
   const long long rows = bh * sq;
   const long long warps = kThreads / 32;
-  delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
-                       stream>>>(static_cast<const T*>(out),
-                                 static_cast<const T*>(dout),
-                                 static_cast<float*>(delta), rows);
+  delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), kThreads, 0,
+                    stream>>>(static_cast<const T*>(out),
+                              static_cast<const T*>(dout),
+                              static_cast<float*>(delta), rows, d);
   return cudaGetLastError();
 }
 
@@ -511,8 +526,8 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int sq, int skv,
-                 float scale, int causal) {
+                 __nv_bfloat16* __restrict__ dv, int sq, int skv, int d,
+                 float scale, int causal, int band) {
   using L = DkvLayout<D>;
   constexpr int kRowBox = kBfDkvBlockQ * 128;  // bytes of a 64-column box
   extern __shared__ unsigned char smem_raw[];
@@ -527,9 +542,12 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBfDkvBlockK;
-  const int n_q = (sq + kBfDkvBlockQ - 1) / kBfDkvBlockQ;
-  // causal (Sq == Skv): q tiles above the key tile's first key are masked
+  // causal (Sq == Skv): q tiles above the key tile's first key are masked,
+  // and with a band so are the rows past its last key's band
   const int first = causal ? k0 / kBfDkvBlockQ : 0;
+  const int rows_end =
+      causal ? min(sq, k0 + kBfDkvBlockK - 1 + min(band, sq)) : sq;
+  const int n_q = (rows_end + kBfDkvBlockQ - 1) / kBfDkvBlockQ;
 
   if (tid == 0) {
     mbar_init(kvbar, 1);
@@ -606,7 +624,8 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     const int parity = ((j - first) / kBfStages) & 1;
     const int r0 = j * kBfDkvBlockQ;
     mbar_wait(full + 8 * st, parity);
-    if (causal && r0 + kBfDkvBlockQ - 1 < kc0) {  // every key above every row
+    // every key above every row, or every row past every key's band
+    if (causal && (r0 + kBfDkvBlockQ - 1 < kc0 || r0 - (kc0 + 63) >= band)) {
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * st);
       continue;
@@ -628,15 +647,17 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     reg_fence(s);
 
     // P^T: element (key0 + 8 (e / 2), row r0 + 8 n + 2 t + e % 2)
-    const bool edge =  // the diagonal and ragged tiles
-        r0 + kBfDkvBlockQ > sq || kc0 + 64 > skv || (causal && kc0 + 63 > r0);
+    const bool edge =  // the diagonal, ragged and band-edge tiles
+        r0 + kBfDkvBlockQ > sq || kc0 + 64 > skv ||
+        (causal && (kc0 + 63 > r0 || r0 + kBfDkvBlockQ - 1 - kc0 >= band));
     const float* rl = rows_sm + st * 2 * kBfDkvBlockQ;  // lse2, then delta
     probs(
         s, sl2, edge, [&](int n, int e) { return rl[8 * n + 2 * t + (e & 1)]; },
         [&](int n, int e) {
           const int key = key0 + 8 * (e >> 1);
           const int row = r0 + 8 * n + 2 * t + (e & 1);
-          return row < sq && key < skv && (!causal || key <= row);
+          return row < sq && key < skv &&
+                 (!causal || (key <= row && row - key < band));
         });
 
     // dP^T = V_c dout^T
@@ -683,18 +704,20 @@ dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) mbar_arrive(empty + 8 * st);  // this warp is done
   }
 
-  __nv_bfloat16* dkb = dk + (int64_t)bh * skv * D;
-  __nv_bfloat16* dvb = dv + (int64_t)bh * skv * D;
+  // d columns of a row of d
+  __nv_bfloat16* dkb = dk + (int64_t)bh * skv * d;
+  __nv_bfloat16* dvb = dv + (int64_t)bh * skv * d;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * t;
+    if (c >= d) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int key = key0 + 8 * h;
       if (key >= skv) continue;
-      *reinterpret_cast<uint32_t*>(dkb + (int64_t)key * D + c) =
+      *reinterpret_cast<uint32_t*>(dkb + (int64_t)key * d + c) =
           pack_rn(dka[4 * n + 2 * h], dka[4 * n + 2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + (int64_t)key * D + c) =
+      *reinterpret_cast<uint32_t*>(dvb + (int64_t)key * d + c) =
           pack_rn(dva[4 * n + 2 * h], dva[4 * n + 2 * h + 1]);
     }
   }
@@ -708,8 +731,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dq, int sq, int skv, float scale,
-               int causal) {
+               __nv_bfloat16* __restrict__ dq, int sq, int skv, int d,
+               float scale, int causal, int band) {
   using L = DqLayout<D>;
   constexpr int kKvBox = kBfDqBlockK * 128;  // bytes of a 64-column box
   extern __shared__ unsigned char smem_raw[];
@@ -721,9 +744,12 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBfDqBlockQ;  // longest first
-  // causal (Sq == Skv): key tiles past the q tile's last row are masked
+  // causal (Sq == Skv): key tiles past the q tile's last row are masked,
+  // and with a band so are those below its first row's band: the tiles
+  // [j0, j0 + n_tiles)
   const int kv_end = causal ? min(skv, q0 + kBfDqBlockQ) : skv;
-  const int n_tiles = (kv_end + kBfDqBlockK - 1) / kBfDqBlockK;
+  const int j0 = causal ? max(0, q0 - band + 1) / kBfDqBlockK : 0;
+  const int n_tiles = (kv_end + kBfDqBlockK - 1) / kBfDqBlockK - j0;
 
   if (tid == 0) {
     mbar_init(qbar, 1);
@@ -746,10 +772,10 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
         if (round > 0) mbar_wait_or_trap(empty + 8 * st, (round - 1) & 1);
         const uint32_t ks = base + L::kStage + st * L::kStageBytes;
         mbar_expect_tx(full + 8 * st, 2 * L::kKvTile);
-        tma_tile<D, kBfDqBlockK>(ks, &kmap, full + 8 * st, j * kBfDqBlockK,
-                                 bh);
+        tma_tile<D, kBfDqBlockK>(ks, &kmap, full + 8 * st,
+                                 (j0 + j) * kBfDqBlockK, bh);
         tma_tile<D, kBfDqBlockK>(ks + L::kKvTile, &vmap, full + 8 * st,
-                                 j * kBfDqBlockK, bh);
+                                 (j0 + j) * kBfDqBlockK, bh);
       }
     }
     return;
@@ -781,9 +807,11 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint64_t odesc = smem_desc(base + L::kO + cw * 64 * 128, 16, 1024);
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kBfStages, parity = (j / kBfStages) & 1;
-    const int kt0 = j * kBfDqBlockK;
+    const int kt0 = (j0 + j) * kBfDqBlockK;
     mbar_wait(full + 8 * st, parity);
-    if (causal && kt0 > row_lo + 63) {  // every key above every row
+    // every key above every row, or below every row's band
+    if (causal &&
+        (kt0 > row_lo + 63 || row_lo - (kt0 + kBfDqBlockK - 1) >= band)) {
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * st);
       continue;
@@ -806,13 +834,15 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // P: element (row r0 + 8 (e / 2), key kt0 + 8 n + 2 t + e % 2)
     const bool edge = row_lo + 64 > sq || kt0 + kBfDqBlockK > skv ||
-                      (causal && kt0 + kBfDqBlockK - 1 > row_lo);
+                      (causal && (kt0 + kBfDqBlockK - 1 > row_lo ||
+                                  row_lo + 63 - kt0 >= band));
     probs(
         s, sl2, edge, [&](int n, int e) { return lse2[e >> 1]; },
         [&](int n, int e) {
           const int row = r0 + 8 * (e >> 1);
           const int key = kt0 + 8 * n + 2 * t + (e & 1);
-          return row < sq && key < skv && (!causal || key <= row);
+          return row < sq && key < skv &&
+                 (!causal || (key <= row && row - key < band));
         });
 
     // dP = dout_c V^T, then dS
@@ -847,15 +877,16 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (lane == 0) mbar_arrive(empty + 8 * st);  // this warp is done
   }
 
-  __nv_bfloat16* dqb = dq + (int64_t)bh * sq * D;
+  __nv_bfloat16* dqb = dq + (int64_t)bh * sq * d;  // d columns of d
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * t;
+    if (c >= d) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       if (row < sq)
-        *reinterpret_cast<uint32_t*>(dqb + (int64_t)row * D + c) =
+        *reinterpret_cast<uint32_t*>(dqb + (int64_t)row * d + c) =
             pack_rn(dqa[4 * n + 2 * h], dqa[4 * n + 2 * h + 1]);
     }
   }
@@ -945,6 +976,13 @@ __device__ __forceinline__ int lane_id() {
   int lane;
   asm volatile("mov.u32 %0, %%laneid;\n" : "=r"(lane));
   return lane;
+}
+
+// a shared-memory word read anew at each use: a value the tile loop reads
+// this way holds no register through it (the band's bounds, held, were
+// spilled at the register cap)
+__device__ __forceinline__ int read_anew(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
 }
 
 __device__ __forceinline__ Offsets lane_offsets() {
@@ -1125,28 +1163,32 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
   }
 }
 
-// acc's rows r and r + 8 (the lane's g and g + 8) to a [rows][D] fp32
-// matrix at `out` (row r of the lane): blocks n, n + 1 of 8 columns give
-// columns 16 (n / 2) + 4 t .. + 3 (see Offsets)
-template <int D>
+// acc's rows r and r + 8 (the lane's g and g + 8) to a [rows][kLd] fp32
+// matrix at `out` (row r of the lane; kLd <= D, a multiple of 16): blocks
+// n, n + 1 of 8 columns give columns 16 (n / 2) + 4 t .. + 3 (see
+// Offsets). The row length is a constant: a runtime one cost the epilogue
+// registers that ptxas spilled.
+template <int D, int kLd>
 __device__ __forceinline__ void store_rows(float* out,
                                            const float (&acc)[D / 8][4],
                                            bool lo_in, bool hi_in) {
   const int t = lane_id() & 3;
 #pragma unroll
-  for (int n = 0; n < D / 8; n += 2)
+  for (int n = 0; n < kLd / 8; n += 2)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (r == 0 ? lo_in : hi_in)
-        *reinterpret_cast<float4*>(out + 8 * r * D + 8 * n + 4 * t) =
+        *reinterpret_cast<float4*>(out + 8 * r * kLd + 8 * n + 4 * t) =
             make_float4(acc[n][2 * r], acc[n + 1][2 * r], acc[n][2 * r + 1],
                         acc[n + 1][2 * r + 1]);
 }
 
 // dK / dV of one 128-key tile. Consumer warp cw owns keys k0 + 16 cw .. + 15;
 // its products are transposed (keys as rows), so P^T and dS^T come out as
-// the A fragments of dV += P^T dout and dK += dS^T q.
-template <int D>
+// the A fragments of dV += P^T dout and dK += dS^T q. kLd: the tensors'
+// head dim (D, or 80 in D = 128). kBand: a causal call with a band (`band`
+// < 2^30); without it the band's code compiles away.
+template <int D, int kLd, bool kBand>
 __global__ void __launch_bounds__(kF32Threads, 1)
 dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap omap,
@@ -1155,7 +1197,10 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dk, float* __restrict__ dv, int sq,
                 int skv, float scale, int causal) {
+  // `causal`: 0 for a full call, else the band (2^30: none), so the
+  // parameters are those of the band-free kernel
   using L = DkvF32Layout<D>;
+  const int band = causal;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1173,6 +1218,9 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   // first key are masked. Each role computes it after setmaxnreg (kept
   // live through it, ptxas spilled it).
   auto first_tile = [&]() { return causal ? k0 / kF32DkvBlockQ : 0; };
+  // kBand: the end of the rows walked (those past the last key's band are
+  // masked) and the band, in shared memory (`read_anew`)
+  __shared__ int band_sm[2];
 
   if (tid == 0) {
     mbar_init(kvbar, 1);
@@ -1181,6 +1229,10 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_init(empty + 8 * st, 8);      // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (kBand) {
+      band_sm[0] = min(sq, k0 + kF32DkvBlockK - 1 + min(band, sq));
+      band_sm[1] = band;
+    }
   }
   __syncthreads();
 
@@ -1189,7 +1241,9 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
                  ::"n"(kF32ProducerRegs));
     if (tid >= 32) return;
     const int first = first_tile();
-    const int n_q = (sq + kF32DkvBlockQ - 1) / kF32DkvBlockQ;
+    int n_q = (sq + kF32DkvBlockQ - 1) / kF32DkvBlockQ;
+    if constexpr (kBand)
+      n_q = (read_anew(band_sm) + kF32DkvBlockQ - 1) / kF32DkvBlockQ;
     if (lane == 0) {
       mbar_expect_tx(kvbar, 2 * L::kKvTile);
       tma_tile_f32<D, kF32DkvBlockK>(base + L::kK, &kmap, kvbar, k0, bh);
@@ -1241,6 +1295,9 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   // i % kF32Stages
   for (int i = 0, r0 = first * kF32DkvBlockQ; r0 < sq;
        ++i, r0 += kF32DkvBlockQ) {
+    if constexpr (kBand) {
+      if (r0 >= read_anew(band_sm)) break;  // past every key's band
+    }
     const int st = i % kF32Stages, parity = (i / kF32Stages) & 1;
     mbar_wait(full + 8 * st, parity);
     // no key of the warp, or every key above every row
@@ -1258,8 +1315,13 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     // 8 n + 2 t + e % 2)
     float s[4][4], dp[4][4];
     scores<D, kF32DkvBlockK>(s, kw, qs);
-    const bool edge = r0 + kF32DkvBlockQ > sq || kc0 + 16 > skv ||
-                      (causal && kc0 + 15 > r0);
+    bool edge = r0 + kF32DkvBlockQ > sq || kc0 + 16 > skv ||
+                (causal && kc0 + 15 > r0);
+    int bnd = 0;  // kBand: the band's edge masks too
+    if constexpr (kBand) {
+      bnd = read_anew(band_sm + 1);
+      edge = edge || r0 + kF32DkvBlockQ - 1 - kc0 >= bnd;
+    }
     const int g = lane_id() >> 2, t = lane_id() & 3;
 #pragma unroll
     for (int n = 0; n < 4; ++n)
@@ -1268,7 +1330,8 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         const int ri = 8 * n + 2 * t + (e & 1);
         const float p = exp2f(fmaf(s[n][e], sl2, -rl[ri]));
         const int key = kc0 + g + 8 * (e >> 1), row = r0 + ri;
-        const bool keep = row < sq && key < skv && (!causal || key <= row);
+        bool keep = row < sq && key < skv && (!causal || key <= row);
+        if constexpr (kBand) keep = keep && row - key < bnd;
         s[n][e] = edge && !keep ? 0.f : p;
       }
     Split<4> a[4];
@@ -1299,13 +1362,14 @@ dkdv_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const int key = kc0 + lane_id() / 4;  // and key + 8
-  const int64_t at = ((int64_t)bh * skv + key) * D;
-  store_rows<D>(dk + at, dka, key < skv, key + 8 < skv);
-  store_rows<D>(dv + at, dva, key < skv, key + 8 < skv);
+  const int64_t at = ((int64_t)bh * skv + key) * kLd;
+  store_rows<D, kLd>(dk + at, dka, key < skv, key + 8 < skv);
+  store_rows<D, kLd>(dv + at, dva, key < skv, key + 8 < skv);
 }
 
 // dQ of one 128-row q tile. Consumer warp cw owns rows q0 + 16 cw .. + 15.
-template <int D>
+// kLd and kBand as in dkdv_f32_kernel.
+template <int D, int kLd, bool kBand>
 __global__ void __launch_bounds__(kF32Threads, 1)
 dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap omap,
@@ -1314,7 +1378,8 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int sq, int skv, float scale,
               int causal) {
-  using L = DqF32Layout<D>;
+  using L = DqF32Layout<D>;  // `causal` as in dkdv_f32_kernel
+  const int band = causal;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1327,10 +1392,17 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32DqBlockQ;  // longest first
   // the key tiles; causal (Sq == Skv): those past the q tile's last row are
-  // masked. Each role computes it after setmaxnreg.
+  // masked, and with a band (kBand) those below its first row's band: the
+  // tiles [first_tile(), first_tile() + tiles()). Each role computes it
+  // after setmaxnreg.
+  auto first_tile = [&]() {
+    return kBand ? max(0, q0 - band + 1) / kF32DqBlockK : 0;
+  };
   auto tiles = [&]() {
     const int kv_end = causal ? min(skv, q0 + kF32DqBlockQ) : skv;
-    return (kv_end + kF32DqBlockK - 1) / kF32DqBlockK;
+    int n = (kv_end + kF32DqBlockK - 1) / kF32DqBlockK;
+    if constexpr (kBand) n -= first_tile();
+    return n;
   };
 
   if (tid == 0) {
@@ -1347,7 +1419,7 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  ::"n"(kF32ProducerRegs));
     if (tid == 0) {
-      const int n_tiles = tiles();
+      const int n_tiles = tiles(), j0 = first_tile();
       mbar_expect_tx(qbar, 2 * L::kRowTile);
       tma_tile_f32<D, kF32DqBlockQ>(base + L::kQ, &qmap, qbar, q0, bh);
       tma_tile_f32<D, kF32DqBlockQ>(base + L::kO, &omap, qbar, q0, bh);
@@ -1357,9 +1429,9 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         const uint32_t ks = base + L::kStage + st * L::kStageBytes;
         mbar_expect_tx(full + 8 * st, 2 * L::kKvTile);
         tma_tile_f32<D, kF32DqBlockK>(ks, &kmap, full + 8 * st,
-                                      j * kF32DqBlockK, bh);
+                                      (j0 + j) * kF32DqBlockK, bh);
         tma_tile_f32<D, kF32DqBlockK>(ks + L::kKvTile, &vmap, full + 8 * st,
-                                      j * kF32DqBlockK, bh);
+                                      (j0 + j) * kF32DqBlockK, bh);
       }
     }
     return;
@@ -1398,10 +1470,14 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % kF32Stages, parity = (j / kF32Stages) & 1;
-    const int kt0 = j * kF32DqBlockK;
+    int kt0 = j * kF32DqBlockK;
+    if constexpr (kBand) kt0 += first_tile() * kF32DqBlockK;
     mbar_wait(full + 8 * st, parity);
-    // no row of the warp, or every key above every row
-    if (rw0 >= sq || (causal && kt0 > rw0 + 15)) {
+    // no row of the warp, every key above every row, or (kBand) below every
+    // row's band
+    bool skip = rw0 >= sq || (causal && kt0 > rw0 + 15);
+    if constexpr (kBand) skip = skip || rw0 - (kt0 + kF32DqBlockK - 1) >= band;
+    if (skip) {
       __syncwarp();
       if (lane_id() == 0) mbar_arrive(empty + 8 * st);
       continue;
@@ -1414,8 +1490,9 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
     // + 2 t + e % 2)
     float s[4][4], dp[4][4];
     scores<D, kF32DqBlockQ>(s, qw, ks);
-    const bool edge = rw0 + 16 > sq || kt0 + kF32DqBlockK > skv ||
-                      (causal && kt0 + kF32DqBlockK - 1 > rw0);
+    bool edge = rw0 + 16 > sq || kt0 + kF32DqBlockK > skv ||
+                (causal && kt0 + kF32DqBlockK - 1 > rw0);
+    if constexpr (kBand) edge = edge || rw0 + 15 - kt0 >= band;
     const int g = lane_id() >> 2, t = lane_id() & 3;
     const float* rl = rows_sm + 16 * cw + g;  // lse2 of rows g, g + 8
     const float lse2[2] = {rl[0], rl[8]};
@@ -1426,7 +1503,8 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
         const float p = exp2f(fmaf(s[n][e], sl2, -lse2[e >> 1]));
         const int row = rw0 + g + 8 * (e >> 1);
         const int key = kt0 + 8 * n + 2 * t + (e & 1);
-        const bool keep = row < sq && key < skv && (!causal || key <= row);
+        bool keep = row < sq && key < skv && (!causal || key <= row);
+        if constexpr (kBand) keep = keep && row - key < band;
         s[n][e] = edge && !keep ? 0.f : p;
       }
     // dP = dout_w V^T, then dS = P (dP - delta) scale
@@ -1445,8 +1523,8 @@ dq_f32_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const int row = rw0 + lane_id() / 4;  // and row + 8
-  store_rows<D>(dq + ((int64_t)bh * sq + row) * D, dqa, row < sq,
-                row + 8 < sq);
+  store_rows<D, kLd>(dq + ((int64_t)bh * sq + row) * kLd, dqa, row < sq,
+                     row + 8 < sq);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1493,14 +1571,16 @@ cudaError_t tensor_map(CUtensorMap* map, const void* ptr, long long bh, int s,
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// D: the kernels' head dim (64 or 128); d: the tensors' (d <= D; the maps
+// zero-fill columns d..D-1)
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* delta, void* dq, void* dk, void* dv,
-                        long long bh, int sq, int skv, float scale,
-                        int causal, cudaStream_t stream) {
+                        long long bh, int sq, int skv, int d, float scale,
+                        int causal, int band, cudaStream_t stream) {
   cudaError_t err =
-      launch_delta<__nv_bfloat16, D>(out, dout, delta, bh, sq, stream);
+      launch_delta<__nv_bfloat16>(out, dout, delta, bh, sq, d, stream);
   // dK / dV: q and dout in 64-row boxes, K and V in 128-row boxes; dQ:
   // q and dout in 128-row boxes, K and V in 64-row boxes
   CUtensorMap q_kv, o_kv, k_kv, v_kv, q_q, o_q, k_q, v_q;
@@ -1513,7 +1593,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
               {&q_q, q, sq, kBfDqBlockQ}, {&o_q, dout, sq, kBfDqBlockQ},
               {&k_q, k, skv, kBfDqBlockK}, {&v_q, v, skv, kBfDqBlockK}};
   for (const auto& m : maps)
-    if (err == cudaSuccess) err = tensor_map(m.map, m.ptr, bh, m.s, D, m.rows);
+    if (err == cudaSuccess) err = tensor_map(m.map, m.ptr, bh, m.s, d, m.rows);
   if (err != cudaSuccess) return err;
   const float* flse = static_cast<const float*>(lse);
   const float* fdl = static_cast<const float*>(delta);
@@ -1527,7 +1607,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                      (unsigned)((skv + kBfDkvBlockK - 1) / kBfDkvBlockK));
   dkdv_bf16_kernel<D><<<grid_kv, kBfThreads, smem_kv, stream>>>(
       q_kv, o_kv, k_kv, v_kv, flse, fdl, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), sq, skv, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), sq, skv, d, scale, causal, band);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1540,17 +1620,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                     (unsigned)((sq + kBfDqBlockQ - 1) / kBfDqBlockQ));
   dq_bf16_kernel<D><<<grid_q, kBfThreads, smem_q, stream>>>(
       q_q, o_q, k_q, v_q, flse, fdl, static_cast<__nv_bfloat16*>(dq), sq, skv,
-      scale, causal);
+      d, scale, causal, band);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int kLd, bool kBand>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const void* lse,
                        void* delta, void* dq, void* dk, void* dv, long long bh,
-                       int sq, int skv, float scale, int causal,
-                       cudaStream_t stream) {
-  cudaError_t err = launch_delta<float, D>(out, dout, delta, bh, sq, stream);
+                       int sq, int skv, int d, float scale, int causal,
+                       int band, cudaStream_t stream) {
+  cudaError_t err = launch_delta<float>(out, dout, delta, bh, sq, d, stream);
   // dK / dV: q and dout in 32-row boxes, K and V in 128-row boxes; dQ:
   // q and dout in 128-row boxes, K and V in 32-row boxes
   CUtensorMap q_kv, o_kv, k_kv, v_kv, q_q, o_q, k_q, v_q;
@@ -1564,34 +1644,34 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
               {&k_q, k, skv, kF32DqBlockK}, {&v_q, v, skv, kF32DqBlockK}};
   for (const auto& m : maps)
     if (err == cudaSuccess)
-      err = tensor_map(m.map, m.ptr, bh, m.s, D, m.rows, 4);
+      err = tensor_map(m.map, m.ptr, bh, m.s, d, m.rows, 4);
   if (err != cudaSuccess) return err;
   const float* flse = static_cast<const float*>(lse);
   const float* fdl = static_cast<const float*>(delta);
 
   const int smem_kv = DkvF32Layout<D>::kAlloc;
-  err = cudaFuncSetAttribute(dkdv_f32_kernel<D>,
+  err = cudaFuncSetAttribute(dkdv_f32_kernel<D, kLd, kBand>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((unsigned)bh,
                      (unsigned)((skv + kF32DkvBlockK - 1) / kF32DkvBlockK));
-  dkdv_f32_kernel<D><<<grid_kv, kF32Threads, smem_kv, stream>>>(
+  dkdv_f32_kernel<D, kLd, kBand><<<grid_kv, kF32Threads, smem_kv, stream>>>(
       q_kv, o_kv, k_kv, v_kv, flse, fdl, static_cast<float*>(dk),
-      static_cast<float*>(dv), sq, skv, scale, causal);
+      static_cast<float*>(dv), sq, skv, scale, causal ? band : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int smem_q = DqF32Layout<D>::kAlloc;
-  err = cudaFuncSetAttribute(dq_f32_kernel<D>,
+  err = cudaFuncSetAttribute(dq_f32_kernel<D, kLd, kBand>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((unsigned)bh,
                     (unsigned)((sq + kF32DqBlockQ - 1) / kF32DqBlockQ));
-  dq_f32_kernel<D><<<grid_q, kF32Threads, smem_q, stream>>>(
+  dq_f32_kernel<D, kLd, kBand><<<grid_q, kF32Threads, smem_q, stream>>>(
       q_q, o_q, k_q, v_q, flse, fdl, static_cast<float*>(dq), sq, skv, scale,
-      causal);
+      causal ? band : 0);
   return cudaGetLastError();
 }
 
@@ -1601,36 +1681,50 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, out, dout, dq [bh, sq, d]; k, v,
 // dk, dv [bh, skv, d]; lse and the scratch delta [bh, sq] float32; all
-// contiguous and 16-byte aligned; d in {64, 128}; causal needs sq == skv.
-// Returns a cudaError_t.
+// contiguous and 16-byte aligned; d in {64, 80, 128}; causal needs sq ==
+// skv; window: 0, or a causal call's band W > 0 (float32 at d 128: only
+// W >= sq, a band that masks nothing). Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse,
                         void* delta, void* dq, void* dk, void* dv,
                         long long bh, long long sq, long long skv, int d,
-                        int dtype, int causal, float scale, void* stream) {
+                        int dtype, int causal, int window, float scale,
+                        void* stream) {
   // the grid's second dimension: dQ blocks of q rows, dK / dV blocks of
   // keys
   const int block_q = dtype == 0 ? kF32DqBlockQ : kBfDqBlockQ;
   const int block_k = dtype == 0 ? kF32DkvBlockK : kBfDkvBlockK;
   if (bh <= 0 || sq <= 0 || skv <= 0 || bh > 0x7fffffffLL ||
-      sq > 0x7fffffffLL || skv > 0x7fffffffLL ||
+      sq > (1LL << 28) || skv > (1LL << 28) ||
       (sq + block_q - 1) / block_q > 65535 ||
-      (skv + block_k - 1) / block_k > 65535 || (causal && sq != skv))
+      (skv + block_k - 1) / block_k > 65535 || (causal && sq != skv) ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int isq = (int)sq, iskv = (int)skv;
-  if (dtype == 0 && d == 64)
-    return (int)launch_f32<64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                               bh, isq, iskv, scale, causal, s);
-  if (dtype == 0 && d == 128)
-    return (int)launch_f32<128>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                bh, isq, iskv, scale, causal, s);
+  // a band of at least Sq masks nothing: the band-free kernels take it
+  const bool banded = window > 0 && window < sq;
+  const int band = banded ? window : (1 << 30);  // 2^30: no band
+  // fp32: an instantiation by row length and band (see dkdv_f32_kernel);
+  // none for a band at D 128, where the kernels run at the register cap
+  // and the band's bounds made ptxas spill
+  if (dtype == 0 && d == 128 && banded) return (int)cudaErrorInvalidValue;
+#define F32_CALL(D, LD, BAND)                                                 \
+  return (int)launch_f32<D, LD, BAND>(q, k, v, out, dout, lse, delta, dq, dk, \
+                                      dv, bh, isq, iskv, d, scale, causal,    \
+                                      band, s)
+  if (dtype == 0 && d == 64 && !banded) F32_CALL(64, 64, false);
+  if (dtype == 0 && d == 64) F32_CALL(64, 64, true);
+  if (dtype == 0 && d == 80 && !banded) F32_CALL(128, 80, false);
+  if (dtype == 0 && d == 80) F32_CALL(128, 80, true);
+  if (dtype == 0 && d == 128) F32_CALL(128, 128, false);
+#undef F32_CALL
   if (dtype == 1 && d == 64)
     return (int)launch_bf16<64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                bh, isq, iskv, scale, causal, s);
-  if (dtype == 1 && d == 128)
+                                bh, isq, iskv, d, scale, causal, band, s);
+  if (dtype == 1 && (d == 80 || d == 128))
     return (int)launch_bf16<128>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                 bh, isq, iskv, scale, causal, s);
+                                 bh, isq, iskv, d, scale, causal, band, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,7 +34,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.flash_attention import launch_inputs
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 # kernel launches per (BH, S, D, dtype); chip_smoke.py zeroes and reads them
 LAUNCHES: Counter = Counter()
 
@@ -107,8 +107,9 @@ def _launch_plan(bh: int, s: int, d: int, dtype: torch.dtype,
     (never a fallback). The host does not know valid_len and never syncs to
     learn it, so the plan is sized for all S slots.
 
-    The tile holds TILE_BYTES of K (64 slots at D 128 bf16, the kernel's
-    kTile), the ring STAGES tiles of K and of V. n_split is the fewest
+    The tile holds at most TILE_BYTES of K in a multiple of STATES slots
+    (64 at D 128 bf16, 96 at D 80: the kernel's kTile), the ring STAGES
+    tiles of K and of V. n_split is the fewest
     splits that give every block slot of the card (SMs x BLOCKS_PER_SM) a
     block: 2 at BH 256 on 132 SMs, up to
     MAX_SPLIT at small BH, keeping MIN_SPLIT_TILES tiles a split where S
@@ -121,7 +122,7 @@ def _launch_plan(bh: int, s: int, d: int, dtype: torch.dtype,
         raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS}")
     if min(bh, s, sm_count) <= 0:
         raise ValueError(f"empty launch: BH {bh}, S {s}, {sm_count} SMs")
-    tile = TILE_BYTES // (d * dtype.itemsize)
+    tile = TILE_BYTES // (d * dtype.itemsize) // STATES * STATES
     tiles = -(-s // tile)
     n_split = -(-sm_count * BLOCKS_PER_SM // bh)
     n_split = max(1, min(n_split, MAX_SPLIT, max(tiles // MIN_SPLIT_TILES,

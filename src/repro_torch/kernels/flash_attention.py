@@ -29,11 +29,15 @@ TF32 passes at 495 TFLOP/s (2.083 ms at [1, 32, 4096, 128] causal).
 tensors only; `flash_attention_plain` / `flash_attention_bwd_plain`
 compute the same functions in plain PyTorch on any device (kernels/ops.py
 dispatches, and its autograd Function pairs them). All take folded
-[BH, S, D] tensors. A causal call needs Sq == Skv: the TPU kernel masks
-q_idx >= k_idx from the top left, its oracle from the bottom right, and
-the two agree only on square inputs. `LAUNCHES` / `BWD_LAUNCHES` count
-the wrappers' launches per (BH, Sq, Skv, D, dtype, causal); a backward
-launch runs its three kernels.
+[BH, S, D] tensors, D in HEAD_DIMS (80, h2o-danube's, runs through the
+kernels' D = 128 code on zero-filled columns). A causal call needs Sq ==
+Skv: the TPU kernel masks q_idx >= k_idx from the top left, its oracle
+from the bottom right, and the two agree only on square inputs. A causal
+call may also take a band `window` W > 0, the reference's sliding window:
+a score is kept where 0 <= q_idx - k_idx < W (models/layers.py
+_block_mask), and the kernels skip the tiles wholly outside the band.
+`LAUNCHES` / `BWD_LAUNCHES` count the wrappers' launches per (BH, Sq,
+Skv, D, dtype, causal, window); a backward launch runs its three kernels.
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ import torch
 
 from repro_torch.kernels._build import CudaLibrary
 
-HEAD_DIMS = (64, 128)
-# kernel launches per (BH, Sq, Skv, D, dtype, causal); chip_smoke.py zeroes
+HEAD_DIMS = (64, 80, 128)
+# kernel launches per (BH, Sq, Skv, D, dtype, causal, window); chip_smoke.py
+# zeroes
 # and reads them
 LAUNCHES: Counter = Counter()
 BWD_LAUNCHES: Counter = Counter()
@@ -60,7 +65,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention.argtypes = [
         *[ctypes.c_void_p] * 5, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention.restype = ctypes.c_int
 
 
@@ -68,7 +73,7 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.flash_attention_bwd.argtypes = [
         *[ctypes.c_void_p] * 10, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention_bwd.restype = ctypes.c_int
 
 
@@ -104,7 +109,13 @@ def launch_inputs(what: str, dtypes, *tensors):
     return out
 
 
-def _check_shapes(q, k, v, causal: bool) -> None:
+def _check_shapes(q, k, v, causal: bool, window: int = 0) -> None:
+    if (isinstance(window, bool) or not isinstance(window, (int, np.integer))
+            or window < 0):
+        raise ValueError(f"window {window!r}: want an int >= 0 (0: none)")
+    if window and not causal:
+        raise ValueError(f"window {window} on a non-causal call: the band "
+                         "is a causal call's")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
         raise ValueError(f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}; want [BH, S, D]")
@@ -127,19 +138,21 @@ def _check_kernel_shapes(q, k) -> None:
                          f"k {tuple(k.shape)}")
 
 
-def _key(q, k, causal: bool) -> tuple:
+def _key(q, k, causal: bool, window: int) -> tuple:
     bh, sq, d = q.shape
     return (bh, sq, k.shape[1], d, str(q.dtype).removeprefix("torch."),
-            causal)
+            causal, int(window))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, return_lse: bool = False):
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """Launch the CUDA kernel: q [BH, Sq, D], k, v [BH, Skv, D] of one dtype
-    (float32 or bfloat16), D in HEAD_DIMS; returns [BH, Sq, D] in q's
-    dtype, and with `return_lse` also each row's log-sum-exp [BH, Sq]
-    (float32). Raises if a gradient is requested (see `launch_inputs`)."""
-    _check_shapes(q, k, v, causal)
+    (float32 or bfloat16), D in HEAD_DIMS, a causal call's band `window`
+    (0: none); returns [BH, Sq, D] in q's dtype, and with `return_lse`
+    also each row's log-sum-exp [BH, Sq] (float32). Raises if a gradient
+    is requested (see `launch_inputs`)."""
+    _check_shapes(q, k, v, causal, window)
     _check_kernel_shapes(q, k)
     bh, sq, d = q.shape
     q, k, v = launch_inputs("flash attention", _DTYPES, q, k, v)
@@ -152,19 +165,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, sq, k.shape[1], d,
-            _DTYPES[q.dtype], int(causal), 1.0 / math.sqrt(d), stream)
+            _DTYPES[q.dtype], int(causal), int(window), 1.0 / math.sqrt(d),
+            stream)
     LIBRARY.check(rc, "flash_attention")
-    LAUNCHES[_key(q, k, causal)] += 1
+    LAUNCHES[_key(q, k, causal, window)] += 1
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, *, causal: bool = True) -> tuple:
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0) -> tuple:
     """Launch the CUDA backward: q, out, dout [BH, Sq, D], k, v [BH, Skv,
-    D] of one dtype, lse [BH, Sq] float32 (the forward's); returns (dq,
-    dk, dv) in that dtype."""
-    _check_shapes(q, k, v, causal)
+    D] of one dtype, lse [BH, Sq] float32 (the forward's, of the same
+    `causal` and `window`); returns (dq, dk, dv) in that dtype."""
+    _check_shapes(q, k, v, causal, window)
     _check_kernel_shapes(q, k)
     bh, sq, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape:
@@ -173,6 +188,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (bh, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want "
                          f"float32 [{bh}, {sq}]")
+    if q.dtype == torch.float32 and d == 128 and 0 < window < sq:
+        raise ValueError(
+            f"window {window} at head dim 128 in float32: the fp32 backward "
+            "kernel takes no band at D 128 (its D 128 kernels run at the "
+            "register cap, and the band made ptxas spill there)")
     q, k, v, out, dout = launch_inputs("flash attention backward", _DTYPES,
                                        q, k, v, out, dout)
     (lse,) = launch_inputs("flash attention backward", (torch.float32,), lse)
@@ -185,9 +205,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk,
                                      dv)),
             bh, sq, k.shape[1], d, _DTYPES[q.dtype], int(causal),
-            1.0 / math.sqrt(d), stream)
+            int(window), 1.0 / math.sqrt(d), stream)
     BWD_LIBRARY.check(rc, "flash_attention_bwd")
-    BWD_LAUNCHES[_key(q, k, causal)] += 1
+    BWD_LAUNCHES[_key(q, k, causal, window)] += 1
     return dq, dk, dv
 
 
@@ -198,25 +218,31 @@ def _scores(q, k) -> torch.Tensor:
         1.0 / np.sqrt(q.shape[-1]))
 
 
-def _causal_keep(q, k) -> torch.Tensor:
+def _causal_keep(q, k, window: int = 0) -> torch.Tensor:
     """[Sq, Skv] bool: the (query, key) pairs a causal call keeps, k_idx <=
-    q_idx + (Skv - Sq) (the oracle's bottom-right mask)."""
+    q_idx + (Skv - Sq) (the oracle's bottom-right mask) and, with a band
+    `window` W, q_idx + (Skv - Sq) - k_idx < W."""
     sq, sk = q.shape[1], k.shape[1]
-    return (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-            >= torch.arange(sk, device=q.device)[None, :])
+    diff = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+            - torch.arange(sk, device=q.device)[None, :])
+    keep = diff >= 0
+    if window:
+        keep &= diff < window
+    return keep
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, return_lse: bool = False):
+                          *, causal: bool = True, window: int = 0,
+                          return_lse: bool = False):
     """The kernel's function in plain PyTorch, on any device: the oracle
     (`ref.flash_attention_ref`) on the folded tensors, scores masked to
-    -1e30, softmax in fp32, p cast to q's dtype before PV. With
-    `return_lse` also the rows' fp32 log-sum-exp m + log(max(l, 1e-30))
-    (the reference's `lse_blk`)."""
-    _check_shapes(q, k, v, causal)
+    -1e30 (outside the causal band too, the reference's mask), softmax in
+    fp32, p cast to q's dtype before PV. With `return_lse` also the rows'
+    fp32 log-sum-exp m + log(max(l, 1e-30)) (the reference's `lse_blk`)."""
+    _check_shapes(q, k, v, causal, window)
     scores = _scores(q, k)
     if causal:
-        scores = torch.where(_causal_keep(q, k), scores, -1e30)
+        scores = torch.where(_causal_keep(q, k, window), scores, -1e30)
     out = torch.einsum("bqk,bkd->bqd",
                        torch.softmax(scores, dim=-1).to(q.dtype), v)
     if not return_lse:
@@ -229,18 +255,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True) -> tuple:
+                              causal: bool = True, window: int = 0) -> tuple:
     """The backward kernel's function in plain PyTorch, on any device: the
     reference's `_flash_bwd` op for op over one block (P in fp32 from the
     forward's lse, zero where masked; products of q-dtype operands cast to
     fp32 where the reference casts them). Returns (dq, dk, dv) in the
     inputs' dtypes."""
-    _check_shapes(q, k, v, causal)
+    _check_shapes(q, k, v, causal, window)
     scale = 1.0 / float(np.sqrt(q.shape[-1]))
     delta = (out.float() * dout.float()).sum(dim=-1)
     p = torch.exp(_scores(q, k) - lse[..., None])
     if causal:
-        p = torch.where(_causal_keep(q, k), p, 0.0)
+        p = torch.where(_causal_keep(q, k, window), p, 0.0)
     dv = torch.einsum("bqk,bqd->bkd", p, dout.float())
     dp = torch.einsum("bqd,bkd->bqk", dout, v).float()
     ds = p * (dp - delta[..., None]) * scale

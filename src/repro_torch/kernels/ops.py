@@ -275,25 +275,27 @@ def _use_kernel(x: torch.Tensor, use_pallas: bool | None) -> bool:
 class _FlashAttention(torch.autograd.Function):
     """Flash attention on folded [BH, S, D] tensors with the reference's
     backward: the forward saves q, k, v, out and the fp32 log-sum-exp
-    [BH, Sq]; the backward recomputes the probabilities from them
-    (`flash_attention_bwd`: the kernels on CUDA with `kernel`, else the
-    plain versions) and returns dq, dk, dv in the inputs' dtypes."""
+    [BH, Sq]; the backward recomputes the probabilities from them under
+    the same mask (`causal`, `window`) (`flash_attention_bwd`: the kernels
+    on CUDA with `kernel`, else the plain versions) and returns dq, dk, dv
+    in the inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, kernel: bool):
+    def forward(ctx, q, k, v, causal: bool, window: int, kernel: bool):
         fn = (_flash.flash_attention if kernel
               else _flash.flash_attention_plain)
-        out, lse = fn(q, k, v, causal=causal, return_lse=True)
+        out, lse = fn(q, k, v, causal=causal, window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.kernel = causal, kernel
+        ctx.causal, ctx.window, ctx.kernel = causal, window, kernel
         return out
 
     @staticmethod
     def backward(ctx, dout):
         fn = (_flash.flash_attention_bwd if ctx.kernel
               else _flash.flash_attention_bwd_plain)
-        dq, dk, dv = fn(*ctx.saved_tensors, dout, causal=ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = fn(*ctx.saved_tensors, dout, causal=ctx.causal,
+                        window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -302,22 +304,25 @@ def flash_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    window: int = 0,
     use_pallas: bool | None = None,
 ) -> torch.Tensor:
     """Attention, [B, H, Sq, D] in q's dtype. A causal call needs Sq ==
-    Skv (raises ValueError otherwise, on both paths). Differentiable: with
-    a gradient wanted the call goes through `_FlashAttention`, whose
+    Skv (raises ValueError otherwise, on both paths) and may take a band
+    `window` W > 0 (keeps 0 <= q_idx - k_idx < W; 0: none). Differentiable:
+    with a gradient wanted the call goes through `_FlashAttention`, whose
     backward takes the same route as the forward (the kernel or the plain
     version)."""
     b, h, sq, d = q.shape
     kernel = _use_kernel(q, use_pallas)
     fold = lambda x: x.reshape(b * h, x.shape[2], d)  # noqa: E731
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal, kernel)
+        out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal,
+                                    window, kernel)
     else:
         fn = (_flash.flash_attention if kernel
               else _flash.flash_attention_plain)
-        out = fn(fold(q), fold(k), fold(v), causal=causal)
+        out = fn(fold(q), fold(k), fold(v), causal=causal, window=window)
     return out.reshape(b, h, sq, d)
 
 

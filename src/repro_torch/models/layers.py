@@ -8,16 +8,18 @@ chunked SSD scan, its one-token step and its causal depthwise conv.
 
   flash   the hand-written flash kernel (kernels/ops.flash_attention), for
           a causal square call from position 0 with no cache mask
-          (prefill), or a full (non-causal) call of more than one query
-          row with no mask and no window (whisper's encoder and its
-          prefill cross-attention);
+          (prefill), with or without a sliding window (the kernel's band),
+          or a full (non-causal) call of more than one query row with no
+          mask and no window (whisper's encoder and its prefill
+          cross-attention);
   decode  the hand-written decode kernel (kernels/ops.decode_attention),
           for one query row against a cache masked at `kv_valid_len`
           (a decode step), or unmasked (whisper's cross-attention at a
           decode step: valid_len is the whole cache);
   plain   the reference's own math in PyTorch: every CPU call, and the
           calls outside the kernels' contract on the card (a head dim the
-          kernels do not take, a windowed prompt longer than its window).
+          kernels do not take, a q offset, a given scale, fp16, a windowed
+          non-causal or decode call).
 
 The MoE's expert products and the SSD chunk products are plain products
 in the reference too (no Pallas kernel reaches them); here they stay
@@ -171,8 +173,8 @@ def attention_route(
     Both kernels fix the scale at 1/sqrt(D), take D in HEAD_DIMS and
     float32 / bfloat16. Beyond that, flash takes
       - a causal call with Sq == Skv, no `kv_valid_len`, `q_offset` 0 and
-        either no window or Sq <= window (then q_idx - k_idx < window
-        holds for every unmasked pair, and the window is a no-op);
+        any window (the kernel's band: q_idx - k_idx < window; the fp32
+        backward kernel refuses a band below Sq at D 128, loudly);
       - a full (non-causal) call with Sq > 1, no `kv_valid_len` and no
         window, at any Sq and Skv (the kernel's last tiles may be
         ragged);
@@ -187,7 +189,7 @@ def attention_route(
             and dtype in _KERNEL_DTYPES)
     kernel = None
     if (fits and kv_valid_len is None and causal and sq == skv
-            and _is_zero(q_offset) and (not window or sq <= window)):
+            and _is_zero(q_offset)):
         kernel = "flash"
     elif (fits and kv_valid_len is None and not causal and not window
           and sq > 1):
@@ -238,7 +240,8 @@ def attention(
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
     if route == "flash":
-        return ops.flash_attention(q, k, v, causal=causal, use_pallas=True)
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   use_pallas=True)
     if route == "decode":
         if kv_valid_len is None:
             kv_valid_len = _all_valid_on(k.shape[2], q.device)

@@ -200,10 +200,13 @@ def test_plain_attention_chunks_give_the_unchunked_result(monkeypatch):
 
 def test_attention_route():
     """The route rule at full widths: qwen3-4b's prefill takes the flash
-    kernel and its decode the decode kernel; h2o-danube's head dim 80, a
-    windowed prompt past its window, a q offset, a scale and fp16 take the
-    plain route; the CPU always does. use_pallas=True raises on the CPU and
-    outside the kernels' contract."""
+    kernel and its decode the decode kernel; so do h2o-danube's (head dim
+    80, window 4096) prefill, training and decode shapes, and a windowed
+    prompt past its window (the flash kernel's band); a head dim the
+    kernels do not take, a q offset, a scale, fp16, a non-causal windowed
+    call and a windowed decode call take the plain route; the CPU always
+    does. use_pallas=True raises on the CPU and outside the kernels'
+    contract."""
     route = layers.attention_route
     q3 = tbase.get_config("qwen3-4b")
     hq, hkv, hd = q3.num_heads, q3.num_kv_heads, q3.resolved_head_dim
@@ -217,16 +220,44 @@ def test_attention_route():
     dan = tbase.get_config("h2o-danube-1.8b")
     assert dan.resolved_head_dim == 80
     dq, dkv = (8, 32, 2048, 80), (8, 8, 2048, 80)
-    assert route(dq, dkv, window=dan.sliding_window) == "plain"
+    w = dan.sliding_window
+    assert w == 4096
+    assert route(dq, dkv, window=w) == "flash"
+    assert route(dq, dkv, window=w, device="cpu") == "plain"
+    # danube's training shape (seq 8192: the band is live) and its prefill
+    # past the window, bf16 and fp32
+    for dt in (torch.bfloat16, torch.float32):
+        assert route((1, 32, 8192, 80), (1, 8, 8192, 80), window=w,
+                     dtype=dt) == "flash"
+    assert route((4, 32, 8192, 80), (4, 8, 8192, 80), window=w,
+                 use_pallas=True) == "flash"
     assert route((8, 32, 1, 80), (8, 8, 4096, 80), causal=False,
-                 kv_valid_len=5) == "plain"
-    # a window is a no-op up to its length, and masks past it
+                 kv_valid_len=5) == "decode"
+    assert route((8, 32, 1, 80), (8, 8, 4096, 80), causal=False,
+                 kv_valid_len=5, device="cpu") == "plain"
+    # a window is a no-op up to its length, and the kernel's band past it
     assert route((2, 32, 4096, 128), (2, 8, 4096, 128), window=4096) \
         == "flash"
     assert route((2, 32, 4097, 128), (2, 8, 4097, 128), window=4096) \
-        == "plain"
+        == "flash"
+    assert route((2, 32, 4097, 128), (2, 8, 4097, 128), window=4096,
+                 device="cpu") == "plain"
+    # a windowed decode call and a non-causal windowed call stay plain
     assert route((2, 32, 1, 128), (2, 8, 64, 128), causal=False,
                  kv_valid_len=3, window=16) == "plain"
+    assert route((2, 32, 1, 80), (2, 8, 4096, 80), causal=False,
+                 kv_valid_len=3, window=w) == "plain"
+    assert route((2, 32, 64, 128), (2, 8, 64, 128), causal=False,
+                 window=16) == "plain"
+    assert route((2, 32, 64, 96), (2, 8, 64, 96)) == "plain"
+    # the route takes a band at D 128 in fp32 too: the forward kernel takes
+    # it, and the fp32 backward kernel refuses it loudly (no model has one)
+    assert route((2, 32, 4097, 128), (2, 8, 4097, 128), window=4096,
+                 dtype=torch.float32) == "flash"
+    assert route((2, 32, 4096, 128), (2, 8, 4096, 128), window=4096,
+                 dtype=torch.float32) == "flash"
+    assert route((1, 32, 8192, 80), (1, 8, 8192, 80), window=w,
+                 dtype=torch.float32) == "flash"
     assert route((2, 32, 64, 128), (2, 8, 64, 128), q_offset=5) == "plain"
     assert route((2, 32, 64, 128), (2, 8, 64, 128),
                  q_offset=torch.tensor(0)) == "plain"
@@ -242,7 +273,10 @@ def test_attention_route():
         route((2, 32, 64, 128), (2, 8, 64, 128), device="cpu",
               use_pallas=True)
     with pytest.raises(ValueError, match="no kernel takes"):
-        route(dq, dkv, use_pallas=True)
+        route((2, 32, 64, 96), (2, 8, 64, 96), use_pallas=True)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        route((2, 32, 64, 128), (2, 8, 64, 128), causal=False, window=16,
+              use_pallas=True)
     q = torch.zeros(1, 4, 8, 64)
     with pytest.raises(ValueError, match="use_pallas=True"):
         layers.attention(q, q, q, use_pallas=True)

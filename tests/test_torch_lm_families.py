@@ -284,8 +284,11 @@ def test_attention_route_full_and_unmasked_decode():
             == "plain", kw
     assert route((4, h, 448, d), (4, h, se, d), kv_valid_len=5,
                  **full) == "plain"
-    assert route((4, 32, 448, 80), (4, 8, 600, 80), **full) == "plain"
-    assert route((4, 32, 1, 80), (4, 8, 600, 80), **full) == "plain"
+    # head dim 80 (h2o-danube's) is a kernel's; 96 is none
+    assert route((4, 32, 448, 80), (4, 8, 600, 80), **full) == "flash"
+    assert route((4, 32, 1, 80), (4, 8, 600, 80), **full) == "decode"
+    assert route((4, 32, 448, 96), (4, 8, 600, 96), **full) == "plain"
+    assert route((4, 32, 1, 96), (4, 8, 600, 96), **full) == "plain"
     assert route((4, h, 448, d), (4, h, se, d), causal=True) == "plain"
     with pytest.raises(ValueError, match="no kernel takes"):
         route((4, h, 448, d), (4, h, se, d), window=64, use_pallas=True,
@@ -308,10 +311,11 @@ def kernel_routes(monkeypatch):
     def route(*args, device="cuda", **kw):
         return real_route(*args, device="cuda", **kw)
 
-    def flash(q, k, v, *, causal, use_pallas):
+    def flash(q, k, v, *, causal, use_pallas, window=0):
         assert use_pallas is True
         calls.append(("flash", causal, tuple(q.shape), k.shape[2]))
-        return real_flash(q, k, v, causal=causal, use_pallas=False)
+        return real_flash(q, k, v, causal=causal, window=window,
+                          use_pallas=False)
 
     def decode(q, k, v, valid_len, *, use_pallas):
         assert use_pallas is True

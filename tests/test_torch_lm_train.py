@@ -160,9 +160,10 @@ def flash_route(monkeypatch):
     def route(*args, device="cuda", **kw):
         return real_route(*args, device="cuda", **kw)
 
-    def flash_cpu(q, k, v, *, causal, use_pallas):
+    def flash_cpu(q, k, v, *, causal, use_pallas, window=0):
         assert use_pallas is True
-        return real_flash(q, k, v, causal=causal, use_pallas=None)
+        return real_flash(q, k, v, causal=causal, window=window,
+                          use_pallas=None)
 
     def bwd(*args, **kw):
         calls.append(args[0].shape)
@@ -237,13 +238,14 @@ def test_function_pairs_the_kernels_when_the_kernel_route_is_taken(
     plain_fwd, plain_bwd = (flash.flash_attention_plain,
                             flash.flash_attention_bwd_plain)
 
-    def fwd(q, k, v, *, causal, return_lse=False):
+    def fwd(q, k, v, *, causal, window=0, return_lse=False):
         calls.append(("fwd", return_lse))
-        return plain_fwd(q, k, v, causal=causal, return_lse=return_lse)
+        return plain_fwd(q, k, v, causal=causal, window=window,
+                         return_lse=return_lse)
 
-    def bwd(*args, causal):
+    def bwd(*args, causal, window=0):
         calls.append(("bwd", causal))
-        return plain_bwd(*args, causal=causal)
+        return plain_bwd(*args, causal=causal, window=window)
 
     def no_plain_bwd(*args, **kw):
         raise AssertionError("the plain backward ran on the kernel route")

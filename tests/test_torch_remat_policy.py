@@ -204,13 +204,14 @@ def test_kernel_route_recomputes_the_flash_forward_under_the_policy(
     def route(*args, device="cuda", **kw):
         return real_route(*args, device="cuda", **kw)
 
-    def fwd(q, k, v, *, causal, return_lse=False):
+    def fwd(q, k, v, *, causal, window=0, return_lse=False):
         fwd_calls.append(tuple(q.shape))
-        return plain_fwd(q, k, v, causal=causal, return_lse=return_lse)
+        return plain_fwd(q, k, v, causal=causal, window=window,
+                         return_lse=return_lse)
 
-    def bwd(*args, causal):
+    def bwd(*args, causal, window=0):
         bwd_calls.append(tuple(args[0].shape))
-        return plain_bwd(*args, causal=causal)
+        return plain_bwd(*args, causal=causal, window=window)
 
     monkeypatch.setattr(layers, "attention_route", route)
     monkeypatch.setattr(ops, "_use_kernel", lambda x, use_pallas: True)
